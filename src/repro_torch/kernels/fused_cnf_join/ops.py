@@ -1,0 +1,202 @@
+"""Host packing + corpus loop for the fused CNF-join kernel.
+
+``pack_features`` converts a list of core ``FeatureData`` (+ scaffold clause
+structure) into the kernel's array layout, padding record counts to tile
+multiples and embedding dims to a lane multiple (128).  ``stage_planes``
+uploads the packed planes to the evaluation device.
+``evaluate_corpus_stream`` is the engine behind ``engine="cuda"``: it runs
+the kernel one L-row strip at a time and yields each strip's candidate
+pairs (the plain-torch version when the device is the CPU).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_cnf_join import ref
+from repro_torch.kernels.fused_cnf_join.kernel import SCAL, VEC, cnf_join_block
+
+
+def _pad_to(x: np.ndarray, n: int, axis: int, value: float) -> np.ndarray:
+    pad = n - x.shape[axis]
+    if pad <= 0:
+        return x
+    width = [(0, 0)] * x.ndim
+    width[axis] = (0, pad)
+    return np.pad(x, width, constant_values=value)
+
+
+def pack_features(feats: Sequence, clauses: Sequence, *, tl: int, tr: int,
+                  lane: int = 128):
+    """Returns (emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r).
+
+    Padded L rows are marked missing (distance 1 to everything) so they can
+    never produce spurious matches; padded R likewise.
+    """
+    kclauses, vec_ids, scal_ids = _clause_layout(feats, clauses)
+    used = sorted({f for c in clauses for f in c})
+    vmap = {f: i for i, f in enumerate(vec_ids)}
+
+    n_l = feats[used[0]].data_l.shape[0]
+    n_r = feats[used[0]].data_r.shape[0]
+    pl_n = -(-n_l // tl) * tl
+    pr_n = -(-n_r // tr) * tr
+    d_max = max([feats[f].data_l.shape[1] for f in vec_ids], default=lane)
+    d_pad = -(-d_max // lane) * lane
+
+    if vec_ids:
+        emb_l = np.zeros((len(vec_ids), pl_n, d_pad), np.float32)
+        emb_r = np.zeros((len(vec_ids), pr_n, d_pad), np.float32)
+        for f in vec_ids:
+            dl, dr = feats[f].data_l, feats[f].data_r
+            emb_l[vmap[f], : n_l, : dl.shape[1]] = dl
+            emb_r[vmap[f], : n_r, : dr.shape[1]] = dr
+            # padded rows: missing markers [.., m=-2, 1] / [.., 1, m=-2]
+            emb_l[vmap[f], n_l:, dl.shape[1] - 2] = -2.0
+            emb_l[vmap[f], n_l:, dl.shape[1] - 1] = 1.0
+            emb_r[vmap[f], n_r:, dr.shape[1] - 2] = 1.0
+            emb_r[vmap[f], n_r:, dr.shape[1] - 1] = -2.0
+    else:
+        emb_l = np.zeros((1, pl_n, d_pad), np.float32)
+        emb_r = np.zeros((1, pr_n, d_pad), np.float32)
+
+    if scal_ids:
+        scal_l = np.stack([_pad_to(feats[f].data_l.astype(np.float32), pl_n, 0, 1e9)
+                           for f in scal_ids])
+        scal_r = np.stack([_pad_to(feats[f].data_r.astype(np.float32), pr_n, 0, -1e9)
+                           for f in scal_ids])
+    else:
+        scal_l = np.full((1, pl_n), 1e9, np.float32)
+        scal_r = np.full((1, pr_n), -1e9, np.float32)
+    return emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r
+
+
+def _clause_layout(feats: Sequence, clauses: Sequence):
+    """Kernel-facing clause structure: (kclauses, vec_ids, scal_ids) with
+    featurization indices remapped into the packed embed/scalar stacks."""
+    used = sorted({f for c in clauses for f in c})
+    vec_ids = [f for f in used if feats[f].kind == "embed"]
+    scal_ids = [f for f in used if feats[f].kind == "scalar"]
+    vmap = {f: i for i, f in enumerate(vec_ids)}
+    smap = {f: i for i, f in enumerate(scal_ids)}
+    kclauses = tuple(
+        tuple((VEC, vmap[f]) if feats[f].kind == "embed" else (SCAL, smap[f])
+              for f in c)
+        for c in clauses)
+    return kclauses, vec_ids, scal_ids
+
+
+@dataclasses.dataclass(eq=False)
+class StagedPlanes:
+    """Kernel inputs on the evaluation device plus the host-to-device
+    bytes it took to put them there."""
+    emb_l: torch.Tensor
+    emb_r: torch.Tensor
+    scal_l: torch.Tensor
+    scal_r: torch.Tensor
+    kclauses: tuple
+    n_l: int
+    n_r: int
+    bytes_h2d: int = 0
+
+    @property
+    def arrays(self) -> tuple:
+        return (self.emb_l, self.emb_r, self.scal_l, self.scal_r)
+
+
+def stage_planes(feats: Sequence, clauses: Sequence, *, tl: int, tr: int,
+                 lane: int = 128, device="cuda") -> StagedPlanes:
+    """Pack ``FeatureData`` planes on the host and upload them
+    (``bytes_h2d`` = packed bytes, as the reference counts it on any
+    backend)."""
+    dev = resolve_device(device)
+    emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r = pack_features(
+        feats, clauses, tl=tl, tr=tr, lane=lane)
+    h2d = emb_l.nbytes + emb_r.nbytes + scal_l.nbytes + scal_r.nbytes
+    arrays = tuple(torch.from_numpy(a).to(dev)
+                   for a in (emb_l, emb_r, scal_l, scal_r))
+    return StagedPlanes(*arrays, kclauses, n_l, n_r, bytes_h2d=h2d)
+
+
+def evaluate_corpus(feats: Sequence, clauses: Sequence, thetas,
+                    *, tl: int = 256, tr: int = 512, device="cuda",
+                    return_mask_bytes: bool = False):
+    """Full-corpus CNF evaluation through the kernel; returns [(i, j), ...]
+    (and the device->host mask bytes with ``return_mask_bytes``)."""
+    pairs: list = []
+    mask_bytes = 0
+    for delta in evaluate_corpus_stream(
+            feats, clauses, thetas, tl=tl, tr=tr, l_block=None,
+            device=device):
+        pairs.extend(delta.pairs)
+        mask_bytes += delta.bytes_to_host
+    if return_mask_bytes:
+        return pairs, mask_bytes
+    return pairs
+
+
+def evaluate_corpus_stream(feats: Sequence, clauses: Sequence, thetas,
+                           *, tl: int = 256, tr: int = 512,
+                           l_block=None, early_reject: bool = True,
+                           device="cuda"):
+    """Streaming corpus evaluation: yields an ``engine.base.ChunkDelta`` per
+    L-row block.
+
+    Features are staged once; the kernel then grids one ``l_block``-row
+    strip at a time (``l_block`` a multiple of ``tl``, default one whole
+    pass).  Each strip's packed mask is pulled and unpacked immediately,
+    so candidates for early rows reach the consumer while later strips
+    are still to run.  The one-time plane upload is attributed to the
+    first emitted block.  The per-tile eval counts are pulled with the
+    mask and charged to the chunk (``conjunct_evals``, in pair-clause
+    units over padded tiles).
+    """
+    from repro_torch.engine.base import ChunkDelta
+    from repro_torch.obs.trace import current_tracer
+    tracer = current_tracer()
+    staged = stage_planes(feats, clauses, tl=tl, tr=tr, device=device)
+    demb_l, demb_r, dscal_l, dscal_r = staged.arrays
+    kclauses, n_l, n_r, h2d = (staged.kclauses, staged.n_l, staged.n_r,
+                               staged.bytes_h2d)
+    pl_n, pr_n = demb_l.shape[1], demb_r.shape[1]
+    if l_block is None:
+        l_block = pl_n
+    if l_block % tl != 0:
+        raise ValueError(f"l_block={l_block} must be a multiple of tl={tl}")
+    thetas = tuple(float(t) for t in thetas)
+    for i0 in range(0, pl_n, l_block):
+        rows = min(l_block, pl_n - i0)
+        t0 = time.perf_counter()
+        packed, evals_grid = cnf_join_block(
+            demb_l[:, i0:i0 + rows], demb_r, dscal_l[:, i0:i0 + rows], dscal_r,
+            kclauses, thetas, tl=tl, tr=tr, early_reject=early_reject,
+            with_evals=True)
+        t1 = time.perf_counter()
+        host_mask = packed.cpu().numpy().view(np.uint32)  # O(rows*n_r/8) pull
+        evals_host = evals_grid.cpu().numpy()              # one int32 per tile
+        t2 = time.perf_counter()
+        ok = ref.unpack_mask(host_mask, pr_n)[: max(n_l - i0, 0), :n_r]
+        ii, jj = np.nonzero(ok)
+        # trace sub-slices only: the kernel call vs the blocking mask pull.
+        # Deliberately NOT named dispatch/pull — this backend's EngineStats
+        # carries no dispatch/pull walls.
+        trace = None
+        if tracer:
+            trace = [
+                {"name": "kernel", "t0": t0, "t1": t1,
+                 "attrs": {"rows": rows}},
+                {"name": "mask_pull", "t0": t1, "t1": t2,
+                 "attrs": {"bytes": host_mask.nbytes + evals_host.nbytes}},
+            ]
+        yield ChunkDelta(
+            list(zip((ii + i0).tolist(), jj.tolist())),
+            bytes_to_host=host_mask.nbytes + evals_host.nbytes,
+            bytes_h2d=h2d if i0 == 0 else 0,
+            conjunct_evals=int(evals_host.sum()) * tl * tr,
+            trace=trace)
