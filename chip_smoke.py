@@ -12,11 +12,13 @@ against the plain path on a small input, and times each kernel with CUDA
 events against its bound, its plain version and a library yardstick.
 
 Phases, in order; any failure exits non-zero before the last line:
-  1. the card (nvidia-smi name and power limit) and the kernel builds;
+  1. the card (nvidia-smi name and power limit), the kernel builds and
+     ptxas's report of each kernel's registers, shared memory and spills;
   2. cnf_join_block vs its plain version: the kernel-test fixtures, early
-     reject on and off, with the evals grid; the production cell
-     (262144 x 262144, F_v = 4, D = 128, 3 clauses at theta = 0.4) on a
-     2048-row strip against all of R;
+     reject on and off, with the evals grid; the boundary fixture (64
+     pairs on each clause's threshold, exact duplicates at theta = 0); the
+     production cell (262144 x 262144, F_v = 4, D = 128, 3 clauses at
+     theta = 0.4) on a 2048-row strip against all of R;
   3. threshold_sweep vs its plain version at k = 700000, C in {2, 5},
      G = 4096, with pad rows and +-inf columns (counts exact);
   4. the end-to-end join, barrier then streaming (launch counts reset just
@@ -24,8 +26,13 @@ Phases, in order; any failure exits non-zero before the last line:
      cuda engine against the numpy engine on the same plan, the
      police_records representative CNF at size 4, and the CUDA join
      against the plain-torch join on a small input;
-  5. timing (warm, median of >= 5) at the main path's shapes and at the
-     production cell.
+  5. timing at the main path's shapes and at the production cell: each
+     sample is a run of back-to-back warm calls between two CUDA events,
+     over the count; the median of >= 5 samples.  The main-path launch
+     also gives its one-call time (one call between the events, host
+     dispatch included) and its device time per call from the profiler
+     (kernels and memsets only), each beside the same for the library
+     yardstick.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -46,9 +53,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# NVIDIA data-sheet peaks (dense, no sparsity): FP32 outside the tensor
-# cores, and HBM bandwidth, per H100 variant
-PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
+# NVIDIA data-sheet peaks (dense, no sparsity), per H100 variant: FP32
+# outside the tensor cores, HBM bandwidth, TF32 on the tensor cores
+PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
 EPS_NOTE = "pairs within D*2^-24 of a threshold"
 
 
@@ -100,27 +107,52 @@ class Smoke:
             _build, ck, cref, sk, sref
         self.dev = torch.device("cuda")
         name = torch.cuda.get_device_name(0)
-        self.flops, self.bw = PEAKS["pcie" if "PCIe" in name else "sxm"]
+        self.flops, self.bw, self.tf32 = \
+            PEAKS["pcie" if "PCIe" in name else "sxm"]
         self.captured = {}
         self.kernels = []
         self.main_launches = {}
 
     # -- helpers -----------------------------------------------------------
-    def time_ms(self, fn, runs=7):
-        """Median device ms of ``fn`` over ``runs`` warm calls (CUDA events)."""
+    def time_ms(self, fn, runs=7, reps=None):
+        """Median ms per call of ``fn``: each of ``runs`` samples is ``reps``
+        warm calls back to back between two CUDA events, over the count.
+        By default ``reps`` spans about 2 ms of one-call time (at most 50);
+        ``reps=1`` gives the one-call time, host dispatch included."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        if reps is None:
+            one = self.time_ms(fn, runs=1, reps=1)
+            reps = max(1, min(50, int(2.0 / max(one, 1e-3))))
         times = []
         for _ in range(runs):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(reps):
+                fn()
             b.record()
             b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / reps)
         return statistics.median(times)
+
+    def device_ms(self, fn, n=10):
+        """Device ms per call of ``fn`` from the profiler's device
+        activities (kernels and memsets)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        self.torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            self.torch.cuda.synchronize()
+        # the profiler's own buffer requests show as device activities too
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.key != "Activity Buffer Request") / n / 1e3
 
     def reset_launches(self):
         self.ck.launches["cnf_join"] = 0
@@ -159,25 +191,40 @@ class Smoke:
         return len(ii), float(gap.max())
 
     def cnf_bound_ms(self, args, clauses, tl, tr, evals):
-        """Least time for this call: ops over the FP32 peak vs bytes over the
-        HBM rate.  Ops count what this data needs: per tile, only the
-        clauses it evaluated (evals grid), 2*D per embed member-pair, 2 per
-        scalar member-pair, 1 compare per clause-pair."""
+        """Least time for this call, two ways, each the larger of its ops
+        time and the bytes over the HBM rate.  Ops count what this data
+        needs: per tile, only the clauses it evaluated (evals grid).
+
+        ``fp32``: every op on the FP32 pipe: 2*D per embed member-pair, 2
+        per scalar member-pair, 1 compare per clause-pair (``ops``).
+        ``route``: the kernel's 3xTF32 route: 3 * 2*D per embed member-pair
+        on the tensor cores at the TF32 peak, plus the epilogue on the FP32
+        pipe (2 per member-pair, 1 compare per clause-pair).
+
+        Returns (route ms, route bound_by, fp32 ms, ops, bytes)."""
         emb_l, emb_r, scal_l, scal_r = args
         d = emb_l.shape[2]
-        per_clause = [sum(2 * d if k == self.ck.VEC else 2 for k, _ in m) + 1
-                      for m in clauses]
-        cum = [0]
-        for c in per_clause:
-            cum.append(cum[-1] + c)
-        counts = evals.flatten().cpu().tolist()
-        ops = sum(cum[e] for e in counts) * tl * tr
+        vec = self.ck.VEC
+
+        def per_tile(cost):
+            cum = [0]
+            for m in clauses:
+                cum.append(cum[-1] + cost(m))
+            return sum(cum[e] for e in evals.flatten().cpu().tolist()) * tl * tr
+        ops = per_tile(lambda m: sum(2 * d if k == vec else 2 for k, _ in m)
+                       + 1)
+        dots = per_tile(lambda m: sum(2 * d for k, _ in m if k == vec))
+        epilogue = per_tile(lambda m: 2 * len(m) + 1)
         n_l, n_r = emb_l.shape[1], emb_r.shape[1]
-        used_v = {fi for m in clauses for k, fi in m if k == self.ck.VEC}
+        used_v = {fi for m in clauses for k, fi in m if k == vec}
         used_s = {fi for m in clauses for k, fi in m if k == self.ck.SCAL}
         nbytes = 4 * (len(used_v) * (n_l + n_r) * d + len(used_s) * (n_l + n_r)
                       + n_l * n_r // 32 + evals.numel())
-        return 1e3 * max(ops / self.flops, nbytes / self.bw), ops, nbytes
+        route_ops_s = 3 * dots / self.tf32 + epilogue / self.flops
+        route = 1e3 * max(route_ops_s, nbytes / self.bw)
+        fp32 = 1e3 * max(ops / self.flops, nbytes / self.bw)
+        by = "operations" if route_ops_s >= nbytes / self.bw else "bytes"
+        return route, by, fp32, ops, nbytes
 
     def sweep_bound_ms(self, k, c, g):
         ops = g * k * (c + 2)
@@ -195,6 +242,9 @@ class Smoke:
         secs = self.build.build_all(["cnf_join", "threshold_sweep"])
         log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
             f"(parallel nvcc, wall {time.perf_counter() - t0:.2f} s)")
+        for name in secs:
+            for line in self.build.ptxas_report(name):
+                log(f"ptxas {name}: {line}")
 
     def _fixture(self, rng, fv, nl, nr, d):
         np = self.np
@@ -232,6 +282,7 @@ class Smoke:
                 total += n
         log(f"phase 2: cnf_join fixtures ok ({len(shapes) * 2 + len(structures) * 2}"
             f" cases, evals grids equal, {total} mismatched bits, all {EPS_NOTE})")
+        self._boundary_fixture()
 
         # production cell: planes on the card, compared on a 2048-row strip
         g = torch.Generator(device=self.dev).manual_seed(0)
@@ -254,6 +305,74 @@ class Smoke:
             f"strip 2048 x 262144 ok, {n_mis} mismatched bits "
             f"(max |d64 - theta| {err:.3g}, all {EPS_NOTE})")
         self.prod_strip = strip
+
+    def _boundary_fixture(self):
+        """Each clause's theta on the float64 distance of 64 chosen pairs,
+        and 64 exact-duplicate pairs compared at theta = 0: the kernel's
+        3xTF32 products may part from the plain version only there."""
+        from repro_torch.data.cnf_fixtures import boundary_fixture
+        arrays, clauses, thetas, pairs = boundary_fixture(0)
+        args = [self.torch.from_numpy(a).to(self.dev) for a in arrays]
+        band = self.cref.dot_error_band(arrays[0].shape[2])
+        for case, th in thetas.items():
+            for tl, tr in ((256, 512), (32, 64)):
+                for er in (False, True):
+                    n, gap = self.cnf_compare(
+                        args, clauses, th, tl=tl, tr=tr, early_reject=er,
+                        what=f"boundary fixture, {case}")
+                    log(f"phase 2: boundary fixture, {case}, tiles {tl}x{tr},"
+                        f" early_reject {er}: {n} bits differ from the plain "
+                        f"version, largest gap {gap:.3g} (band {band:.3g})")
+        self._distance_error(args, arrays, thetas, pairs)
+
+    def _distance_error(self, args, arrays, thetas, pairs):
+        """The f32 distance each implementation computes for the boundary
+        fixture's chosen pairs, read back exactly from the mask: theta
+        steps over consecutive f32 values, and a pair's distance is the
+        first theta at which it passes.  Prints its error against the
+        float64 distance in units of 2^-24 (bias shows as a mean away
+        from 0; truncation in the tensor cores would show as a bias)."""
+        np, torch = self.np, self.torch
+        ii, jj = pairs
+        el, er = (a.astype(np.float64) for a in arrays[:2])
+        dup = np.arange(64)
+        impls = {"kernel": lambda *a, **k: self.ck.cnf_join_block(*a, **k),
+                 "plain": lambda *a, **k: self.cref.cnf_join_tiles_ref(
+                     *a, early_reject=False, **k)[0]}
+        for f in range(2):
+            center = np.float32(thetas["on_threshold"][f + 1])
+            up = [center]
+            down = []
+            for _ in range(24):
+                up.append(np.nextafter(up[-1], np.float32(1)))
+                down.append(np.nextafter((down or [center])[-1], np.float32(0)))
+            groups = {
+                "on-threshold": (ii, jj, 0.5 - 0.5 * (el[f, ii] * er[f, jj]).sum(-1),
+                                 np.array(down[::-1] + up, np.float32)),
+                "duplicates": (dup, dup, np.clip(
+                    0.5 - 0.5 * (el[f, dup] ** 2).sum(-1), 0, 1),
+                    np.arange(49, dtype=np.float32) * np.float32(2.0 ** -25))}
+            for group, (ri, ci, d64, grid) in groups.items():
+                rows = torch.as_tensor(ri, device=self.dev)
+                cols = torch.as_tensor(ci, device=self.dev)
+                for name, fn in impls.items():
+                    passes = []
+                    for th in grid:
+                        m = fn(*args, (((self.ck.VEC, f),),), (float(th),),
+                               tl=256, tr=512)
+                        passes.append(((m[rows, cols // 32] >> (cols % 32)) & 1)
+                                      .bool().cpu().numpy())
+                    passes = np.array(passes)
+                    # passing at the first theta locates the pair only if
+                    # that theta is 0, the least distance there is
+                    ok = passes.any(0) & (~passes[0] | (grid[0] == 0))
+                    err = (grid[passes.argmax(0)].astype(np.float64) - d64)[ok]
+                    err /= 2.0 ** -24
+                    log(f"phase 2: distance error, feature {f}, {group}, "
+                        f"{name}: {int(ok.sum())} of {len(ri)} pairs located,"
+                        f" error / 2^-24 max |.| "
+                        f"{np.abs(err).max() if ok.any() else float('nan'):.3g}"
+                        f", mean {err.mean() if ok.any() else float('nan'):.3g}")
 
     def phase3_threshold_sweep(self):
         np, torch = self.np, self.torch
@@ -396,12 +515,12 @@ class Smoke:
         tl, tr, er = kw["tl"], kw["tr"], kw["early_reject"]
         n_mis, err = self.cnf_compare(tensors, clauses, thetas, tl=tl, tr=tr,
                                       early_reject=er, what="main-path launch")
-        row_a = self._time_cnf(tensors, clauses, thetas, tl, tr, er)
+        row_a = self._time_cnf(tensors, clauses, thetas, tl, tr, er,
+                               one_call=True)
         row_a.update(max_abs_err=err, mismatches=n_mis)
-        grid = (tensors[0].shape[1] // tl) * (tensors[1].shape[1] // tr)
         log(f"phase 5: cnf_join main path: L strip {tuple(tensors[0].shape)}, "
-            f"R {tuple(tensors[1].shape)}, clauses {clauses}, tiles {tl}x{tr}, "
-            f"{grid} blocks per launch: " + json.dumps(row_a))
+            f"R {tuple(tensors[1].shape)}, clauses {clauses}, tiles {tl}x{tr}: "
+            + json.dumps(row_a))
         self.kernels.append(dict(
             name="cnf_join_block", route="cuda",
             source="src/repro_torch/csrc/cnf_join.cu",
@@ -434,20 +553,24 @@ class Smoke:
         _, evals = self.ck.cnf_join_block(*p["args"], p["clauses"],
                                           p["thetas"], tl=256, tr=512,
                                           early_reject=True, with_evals=True)
-        bound, ops, nbytes = self.cnf_bound_ms(p["args"], p["clauses"], 256,
-                                               512, evals)
+        bound, _, bound_fp32, ops, nbytes = self.cnf_bound_ms(
+            p["args"], p["clauses"], 256, 512, evals)
         log("phase 5: cnf_join production cell: " + json.dumps({
-            "full_ms": full_ms, "full_bound_ms": bound, "full_ops": ops,
+            "full_ms": full_ms, "full_bound_ms": bound,
+            "full_bound_fp32_ms": bound_fp32, "full_ops": ops,
             "full_bytes": nbytes, "full_tflops": ops / full_ms / 1e9,
             "strip_2048": strip}))
         wide = self._time_sweep(self.sweep_wide, {})
         log("phase 5: threshold_sweep k=700416, C=5, G=4096: " +
             json.dumps(wide))
 
-    def _time_cnf(self, tensors, clauses, thetas, tl, tr, er):
+    def _time_cnf(self, tensors, clauses, thetas, tl, tr, er, one_call=False):
         torch = self.torch
-        ms = self.time_ms(lambda: self.ck.cnf_join_block(
-            *tensors, clauses, thetas, tl=tl, tr=tr, early_reject=er))
+
+        def kernel():
+            self.ck.cnf_join_block(*tensors, clauses, thetas, tl=tl, tr=tr,
+                                   early_reject=er)
+        ms = self.time_ms(kernel)
         plain_ms = self.time_ms(lambda: self.cref.cnf_join_tiles_ref(
             *tensors, clauses, thetas, tl=tl, tr=tr, early_reject=er), runs=5)
         emb_l, emb_r = tensors[0], tensors[1]
@@ -457,14 +580,24 @@ class Smoke:
             for fi in members:
                 torch.matmul(emb_l[fi], emb_r[fi].T)
         lib_ms = self.time_ms(library, runs=5) if members else None
+        single = {}
+        if one_call:
+            single = {
+                "ms_one_call": self.time_ms(kernel, reps=1),
+                "library_ms_one_call": self.time_ms(library, reps=1)
+                if members else None,
+                "device_ms": self.device_ms(kernel),
+                "library_device_ms": self.device_ms(library)
+                if members else None}
         _, evals = self.ck.cnf_join_block(*tensors, clauses, thetas, tl=tl,
                                           tr=tr, early_reject=er,
                                           with_evals=True)
-        bound, ops, nbytes = self.cnf_bound_ms(tensors, clauses, tl, tr, evals)
+        bound, by, bound_fp32, ops, nbytes = self.cnf_bound_ms(
+            tensors, clauses, tl, tr, evals)
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "operations" if ops / self.flops >= nbytes / self.bw
-                else "bytes", "library_ms": lib_ms, "ops": ops,
-                "bytes": nbytes, "tflops": ops / ms / 1e9}
+                "bound_by": by, "bound_fp32_ms": bound_fp32,
+                "library_ms": lib_ms, "ops": ops, "bytes": nbytes,
+                "tflops": ops / ms / 1e9, **single}
 
     def _time_sweep(self, args, kw):
         k, c = args[0].shape

@@ -4,13 +4,16 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so \
+         csrc/<name>.cu
 
 The output lands in ``build/kernels/`` at the repository root (gitignored),
 at first use.  The file name carries a hash of the source, so an edited
 source is rebuilt and a stale library is never loaded.  A failed build
 raises with nvcc's stderr.  ``build_all`` starts one nvcc per source, all
-at once, so a cold start pays for the slowest source only.
+at once, so a cold start pays for the slowest source only.  ptxas's report
+of each kernel's registers, shared memory and spills is kept beside the
+library (``<name>-<hash>.ptxas.txt``) and returned by ``ptxas_report``.
 
 Nothing here runs at import time: this module is imported on machines
 without nvcc or a GPU, where only the plain-torch versions run.
@@ -21,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +35,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build",
                          "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the lines of ptxas -v that describe a kernel: its name, its registers
+# and shared memory, its stack and spills
+_PTXAS_KEEP = re.compile(r"Compiling entry function|Used \d+ registers|"
+                         r"spill stores")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -76,6 +84,10 @@ def _finish(name: str, started) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src} "
                                f"(exit {proc.returncode}):\n{err}")
+        report = [ln.strip() for ln in err.splitlines()
+                  if _PTXAS_KEEP.search(ln)]
+        with open(f"{out}.ptxas.txt", "w") as f:
+            f.write("\n".join(report) + "\n")
         os.replace(tmp, out)           # atomic: a half-written .so never loads
     BUILD_SECONDS[name] = time.perf_counter() - t0 if proc is not None else 0.0
     return ctypes.CDLL(out)
@@ -99,6 +111,16 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _LIBS[name]
     return lib
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas's per-kernel lines for ``csrc/<name>.cu`` as built (registers,
+    shared memory, spill bytes); empty if the source is not built."""
+    path = f"{_target(name)[1]}.ptxas.txt"
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [ln for ln in f.read().splitlines() if ln]
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

@@ -14,8 +14,8 @@ bit 31 is the sign bit (view it as uint32 after ``.cpu()``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -26,11 +26,10 @@ __all__ = ["SCAL", "VEC", "cnf_join_block", "launches"]
 
 MAX_CLAUSES = 32
 MAX_MEMBERS = 64
-MAX_MASK_SMEM = 192 * 1024     # a tile's mask words live in shared memory
 _C_INT, _C_LL, _C_PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = [_C_PTR] * 4 + [_C_LL] * 4 + [_C_INT] * 4 + \
     [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.POINTER(ctypes.c_float)] + \
-    [_C_INT] * 3 + [_C_PTR] * 3
+    [_C_INT] * 3 + [_C_PTR] * 4
 
 # kernel launches since the last reset (``launches["cnf_join"] = 0``)
 launches = {"cnf_join": 0}
@@ -67,7 +66,7 @@ def cnf_join_block(emb_l, emb_r, scal_l, scal_r, clauses, thetas, *,
     n_l, n_r = emb_l.shape[1], emb_r.shape[1]
     _check_tiles(n_l, n_r, tl, tr)
     tensors = (emb_l, emb_r, scal_l, scal_r)
-    if all(t.device.type == "cpu" for t in tensors):
+    if emb_l.is_cpu and emb_r.is_cpu and scal_l.is_cpu and scal_r.is_cpu:
         packed, evals = ref.cnf_join_tiles_ref(
             emb_l, emb_r, scal_l, scal_r, clauses, thetas, tl=tl, tr=tr,
             early_reject=early_reject)
@@ -75,67 +74,101 @@ def cnf_join_block(emb_l, emb_r, scal_l, scal_r, clauses, thetas, *,
     return _launch(tensors, clauses, thetas, tl, tr, early_reject, with_evals)
 
 
-def _launch(tensors, clauses, thetas, tl, tr, early_reject, with_evals):
-    emb_l, emb_r, scal_l, scal_r = tensors
-    dev = emb_l.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"cnf_join_block: inputs must all be on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"cnf_join_block: inputs must be float32, got "
-                        f"{[t.dtype for t in tensors]}")
-    fv, n_l, d = emb_l.shape
-    n_r = emb_r.shape[1]
-    if emb_r.shape[0] != fv or emb_r.shape[2] != d or \
-            scal_l.shape[1] != n_l or scal_r.shape[1] != n_r or \
-            scal_l.shape[0] != scal_r.shape[0]:
-        raise ValueError(f"cnf_join_block: mismatched plane shapes "
-                         f"{[tuple(t.shape) for t in tensors]}")
-    for name, t in zip(("emb_l", "emb_r"), (emb_l, emb_r)):
-        if t.stride(2) != 1 or t.stride(1) != d:
-            raise ValueError(f"cnf_join_block: {name} rows must be contiguous")
-    for name, t in zip(("scal_l", "scal_r"), (scal_l, scal_r)):
-        if t.stride(1) != 1:
-            raise ValueError(f"cnf_join_block: {name} rows must be contiguous")
-    if tl * tr // 8 > MAX_MASK_SMEM:
-        raise ValueError(f"tile {tl}x{tr} needs {tl * tr // 8} bytes of mask "
-                         f"words; the kernel holds at most {MAX_MASK_SMEM}")
+def _launcher():
+    """The loaded library and its launch function, typed once."""
+    lib = _build.load("cnf_join")
+    fn = lib.cnf_join_launch
+    if fn.argtypes is None:      # untyped, ctypes would cut pointers to int
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(clauses: tuple, thetas: tuple, fv: int, fs: int) -> tuple:
+    """The clause structure as the C interface takes it: (n_clauses,
+    clause_off, kind, index, theta), validated once per plan."""
     kinds, index, offs = [], [], [0]
     for members in clauses:
         if not members:
             raise ValueError("cnf_join_block: empty clause")
         for kind, fi in members:
-            bound = fv if kind == VEC else scal_l.shape[0]
+            kind, fi = int(kind), int(fi)
+            bound = fv if kind == VEC else fs
             if kind not in (VEC, SCAL) or not 0 <= fi < bound:
                 raise ValueError(f"cnf_join_block: bad member {(kind, fi)}")
-            kinds.append(int(kind))
-            index.append(int(fi))
+            kinds.append(kind)
+            index.append(fi)
         offs.append(len(kinds))
     if not 1 <= len(clauses) <= MAX_CLAUSES or len(kinds) > MAX_MEMBERS \
             or len(thetas) != len(clauses):
         raise ValueError(f"cnf_join_block: {len(clauses)} clauses / "
                          f"{len(kinds)} members / {len(thetas)} thetas (at "
                          f"most {MAX_CLAUSES} / {MAX_MEMBERS})")
-    theta32 = np.asarray([float(t) for t in thetas], np.float32)
+    as_int = (lambda xs: (ctypes.c_int * len(xs))(*xs))
+    # ctypes rounds each Python float to the nearest f32, as numpy does
+    return (len(clauses), as_int(offs), as_int(kinds), as_int(index),
+            (ctypes.c_float * len(thetas))(*map(float, thetas)))
+
+
+def _plan_of(clauses, thetas, fv: int, fs: int) -> tuple:
+    """``_plan`` keyed by the arguments as given where they are hashable
+    (the engine passes tuples), else by their tuple copies."""
+    try:
+        return _plan(clauses, thetas, fv, fs)
+    except TypeError:              # lists: unhashable
+        return _plan(tuple(tuple(map(tuple, m)) for m in clauses),
+                     tuple(thetas), fv, fs)
+
+
+def _launch(tensors, clauses, thetas, tl, tr, early_reject, with_evals):
+    # the checks below are written to cost little host time: at the main
+    # path's size a call's host dispatch is comparable to its device time
+    emb_l, emb_r, scal_l, scal_r = tensors
+    dev = emb_l.device
+    if not emb_l.is_cuda or emb_r.device != dev or scal_l.device != dev \
+            or scal_r.device != dev:
+        raise ValueError(f"cnf_join_block: inputs must all be on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if not (emb_l.dtype == emb_r.dtype == scal_l.dtype == scal_r.dtype
+            == torch.float32):
+        raise TypeError(f"cnf_join_block: inputs must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    fv, n_l, d = emb_l.shape
+    fv_r, n_r, d_r = emb_r.shape
+    fs, n_sl = scal_l.shape
+    fs_r, n_sr = scal_r.shape
+    if fv_r != fv or d_r != d or n_sl != n_l or n_sr != n_r or fs_r != fs:
+        raise ValueError(f"cnf_join_block: mismatched plane shapes "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    strides = (emb_l.stride(), emb_r.stride(), scal_l.stride(),
+               scal_r.stride())
+    for name, st, row in zip(("emb_l", "emb_r", "scal_l", "scal_r"), strides,
+                             ((d, 1), (d, 1), (1,), (1,))):
+        if st[1:] != row:
+            raise ValueError(f"cnf_join_block: {name} rows must be contiguous")
+    plan = _plan_of(clauses, thetas, fv, fs)
     out = torch.empty((n_l, n_r // 32), dtype=torch.int32, device=dev)
     evals = torch.empty((n_l // tl, n_r // tr), dtype=torch.int32,
                         device=dev) if with_evals else None
+    # early reject: a flag per logical tile where clause 0 passes, and a
+    # count of finished blocks (the last one writes the evals grid); the
+    # launch function zeroes it on the stream
+    live = torch.empty((n_l // tl) * (n_r // tr) + 1, dtype=torch.int32,
+                       device=dev) if early_reject and len(clauses) >= 2 \
+        else None
     if n_l and n_r:
-        lib = _build.load("cnf_join")
-        fn = lib.cnf_join_launch
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        as_int = (lambda xs: (ctypes.c_int * len(xs))(*xs))
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            status = fn(emb_l.data_ptr(), emb_r.data_ptr(), scal_l.data_ptr(),
-                        scal_r.data_ptr(), emb_l.stride(0), emb_r.stride(0),
-                        scal_l.stride(0), scal_r.stride(0), n_l, n_r, d,
-                        len(clauses), as_int(offs), as_int(kinds),
-                        as_int(index),
-                        (ctypes.c_float * len(theta32))(*theta32.tolist()),
-                        tl, tr, int(bool(early_reject)), out.data_ptr(),
-                        evals.data_ptr() if evals is not None else None,
-                        stream)
+        lib, fn = _launcher()
+        args = (emb_l.data_ptr(), emb_r.data_ptr(), scal_l.data_ptr(),
+                scal_r.data_ptr(), *(st[0] for st in strides), n_l, n_r, d,
+                *plan, tl, tr, int(bool(early_reject)), out.data_ptr(),
+                evals.data_ptr() if evals is not None else None,
+                live.data_ptr() if live is not None else None,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if dev.index == torch.cuda.current_device():
+            status = fn(*args)
+        else:                       # the runtime launches on its current device
+            with torch.cuda.device(dev):
+                status = fn(*args)
         _build.check(lib, status, "cnf_join_block")
         launches["cnf_join"] += 1
     return (out, evals) if with_evals else out

@@ -8,6 +8,9 @@ bit; the evals grid must agree exactly at equal tile sizes.
 version on the card.)
 """
 
+import os
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -258,3 +261,76 @@ def test_corpus_stream_matches_reference(early_reject):
     assert sorted(pairs) == sorted(p for g in got for p in g.pairs)
     assert nbytes == sum(w.bytes_to_host for w in jops.evaluate_corpus_stream(
         feats, clauses, th, tl=32, tr=64, interpret=True))
+
+
+def test_wrapper_types_the_launch_function(monkeypatch):
+    """The launch function gets its argument types before its first call:
+    untyped, ctypes would pass every pointer as a 32-bit int."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_cnf_join import kernel as tkernel
+    fake = types.SimpleNamespace(cnf_join_launch=ctypes.CDLL(None).labs)
+    assert fake.cnf_join_launch.argtypes is None
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    _, fn = tkernel._launcher()
+    assert fn.argtypes == tkernel._ARGTYPES and fn.restype is ctypes.c_int
+    assert len(fn.argtypes) == 23            # cnf_join_launch's parameters
+
+
+def test_wrapper_plan_rounds_thetas_to_f32_and_validates():
+    from repro_torch.kernels.fused_cnf_join import kernel as tkernel
+    clauses = (((VEC, 0), (SCAL, 0)), ((VEC, 1),))
+    n, offs, kinds, index, theta = tkernel._plan(clauses, (0.1, 1 / 3), 2, 1)
+    assert n == 2 and list(offs) == [0, 2, 3]
+    assert list(kinds) == [VEC, SCAL, VEC] and list(index) == [0, 0, 1]
+    np.testing.assert_array_equal(np.array(list(theta), np.float32),
+                                  np.array([0.1, 1 / 3], np.float32))
+    with pytest.raises(ValueError, match="bad member"):
+        tkernel._plan((((VEC, 2),),), (0.5,), 2, 1)
+    with pytest.raises(ValueError, match="thetas"):
+        tkernel._plan(clauses, (0.5,), 2, 1)
+
+
+def test_plan_of_keys_lists_by_their_tuple_copies():
+    from repro_torch.kernels.fused_cnf_join import kernel as tkernel
+    as_tuples = tkernel._plan_of((((VEC, 0),), ((SCAL, 0),)), (0.25, 0.5),
+                                 1, 1)
+    as_lists = tkernel._plan_of([[[VEC, 0]], [(SCAL, 0)]], [0.25, 0.5], 1, 1)
+    assert as_lists is as_tuples               # one cached plan
+
+
+
+_PTXAS_STDERR = """\
+ptxas info    : 11 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115cnf_join_kernelILb1EEEvNS_6PlanesENS_3CnfEiiiPiS3_S3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115cnf_join_kernelILb1EEEvNS_6PlanesENS_3CnfEiiiPiS3_S3_
+    48 bytes stack frame, 48 bytes spill stores, 48 bytes spill loads
+ptxas info    : Used 128 registers, 1 barriers, 48 bytes cumulative stack size, 1328 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("line,kept", [
+    (2, True),          # the kernel's name
+    (4, True),          # its stack and spills
+    (5, True),          # its registers
+    (1, False),         # module-level lines
+    (3, False),
+])
+def test_build_report_keeps_the_kernel_lines_of_ptxas(line, kept):
+    from repro_torch.kernels import _build
+    text = _PTXAS_STDERR.splitlines()[line - 1]
+    assert bool(_build._PTXAS_KEEP.search(text)) is kept
+
+
+def test_ptxas_report_reads_the_report_beside_the_library(tmp_path,
+                                                          monkeypatch):
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    assert _build.ptxas_report("cnf_join") == []          # not built
+    lib = _build._target("cnf_join")[1]
+    assert os.path.dirname(lib) == str(tmp_path)
+    with open(f"{lib}.ptxas.txt", "w") as f:
+        f.write("Used 128 registers\n\n48 bytes spill stores\n")
+    assert _build.ptxas_report("cnf_join") == ["Used 128 registers",
+                                               "48 bytes spill stores"]
