@@ -19,20 +19,32 @@ Phases, in order; any failure exits non-zero before the last line:
      pairs on each clause's threshold, exact duplicates at theta = 0); the
      production cell (262144 x 262144, F_v = 4, D = 128, 3 clauses at
      theta = 0.4) on a 2048-row strip against all of R;
-  3. threshold_sweep vs its plain version at k = 700000, C in {2, 5},
-     G = 4096, with pad rows and +-inf columns (counts exact);
+  3. threshold_sweep, both routes, counts exactly equal to the plain
+     versions: the direct route at k = 700000, C in {2, 5}, G = 4096 random
+     thresholds with pad rows and +-inf columns; the ranked route against
+     its plain version and the brute-force one on the edge fixture (+-inf,
+     NaN, +-0.0, duplicate rows, invalid rows; G = 48 and G = 1) and on
+     ``candidate_grid`` grids at k = 700000 for C = 2..6, with and without
+     -inf pad rows; ``ops.sweep`` on thresholds of 2**14 bins must take the
+     ranked route and on 2**14 + 1 bins the direct one;
   4. the end-to-end join, barrier then streaming (launch counts reset just
-     before each and read just after; both kernels must have run), the
+     before each and read just after; both kernels must have run, the
+     sweep by its ranked route), the
      cuda engine against the numpy engine on the same plan, the
      police_records representative CNF at size 4, and the CUDA join
      against the plain-torch join on a small input;
   5. timing at the main path's shapes and at the production cell: each
      sample is a run of back-to-back warm calls between two CUDA events,
-     over the count; the median of >= 5 samples.  The main-path launch
-     also gives its one-call time (one call between the events, host
-     dispatch included) and its device time per call from the profiler
-     (kernels and memsets only), each beside the same for the library
-     yardstick.
+     over the count; the median of >= 5 samples.  The main-path launches
+     also give their one-call time (one call between the events, host
+     dispatch included) and their device time per call from the profiler
+     (kernels and memsets only), kernel A each beside the same for the
+     library yardstick.  The sweep: the ranked route at the main-path
+     launch, on the C = 5 grid (k 700000, unpadded and padded) and on
+     2**14 bins with rows spread over all of them, the
+     direct route at the wide case, and the host wall of one
+     ``ops.sweep_counts`` call at the main-path shape (route choice and
+     host-to-device copies included).
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -112,6 +124,7 @@ class Smoke:
         self.captured = {}
         self.kernels = []
         self.main_launches = {}
+        self.sweep_timed = []     # (what, args, kw) of ranked cases to time
 
     # -- helpers -----------------------------------------------------------
     def time_ms(self, fn, runs=7, reps=None):
@@ -137,9 +150,10 @@ class Smoke:
             times.append(a.elapsed_time(b) / reps)
         return statistics.median(times)
 
-    def device_ms(self, fn, n=10):
+    def device_ms(self, fn, n=10, by_name=False):
         """Device ms per call of ``fn`` from the profiler's device
-        activities (kernels and memsets)."""
+        activities (kernels and memsets); with ``by_name`` also each
+        activity's ms per call, keyed by its name's first 40 characters."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -150,17 +164,30 @@ class Smoke:
                 fn()
             self.torch.cuda.synchronize()
         # the profiler's own buffer requests show as device activities too
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.key != "Activity Buffer Request") / n / 1e3
+        parts = {e.key[:40]: e.self_device_time_total / n / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.key != "Activity Buffer Request"}
+        total = sum(parts.values())
+        return (total, parts) if by_name else total
+
+    @staticmethod
+    def host_ms(fn, n=50):
+        """Host ms per call of ``fn`` when its launches are queued back to
+        back (no synchronisation inside the loop)."""
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / n
 
     def reset_launches(self):
         self.ck.launches["cnf_join"] = 0
-        self.sk.launches["threshold_sweep"] = 0
+        for name in self.sk.launches:
+            self.sk.launches[name] = 0
 
     def read_launches(self):
         return {"cnf_join": self.ck.launches["cnf_join"],
-                "threshold_sweep": self.sk.launches["threshold_sweep"]}
+                **self.sk.launches}
 
     def cnf_compare(self, args, clauses, thetas, *, tl, tr, early_reject,
                     what):
@@ -226,10 +253,23 @@ class Smoke:
         by = "operations" if route_ops_s >= nbytes / self.bw else "bytes"
         return route, by, fp32, ops, nbytes
 
-    def sweep_bound_ms(self, k, c, g):
-        ops = g * k * (c + 2)
+    def sweep_bound_ms(self, k, c, g, axes=None):
+        """(ms, bound_by, ops, bytes): each input read once, the output
+        written once.  Direct route: G * k * (C + 2) compare/AND/add
+        operations.  Ranked route: per sample and per threshold row, a
+        binary search of ceil(log2(u_c + 1)) compares and a multiply-add a
+        clause, plus log2(u_c) adds a bin a clause for the prefix."""
         nbytes = 4 * (k * (c + 2) + g * c + 2 * g)
-        return 1e3 * max(ops / self.flops, nbytes / self.bw), ops, nbytes
+        if axes is None:
+            ops = g * k * (c + 2)
+        else:
+            u = self.np.diff(axes[1].numpy()).tolist()
+            bins = int(self.np.prod(u))
+            ops = (k + g) * sum(int(n).bit_length() + 2 for n in u) + \
+                bins * sum(max(int(n) - 1, 0).bit_length() for n in u)
+        ops_s, bytes_s = ops / self.flops, nbytes / self.bw
+        return (1e3 * max(ops_s, bytes_s),
+                "operations" if ops_s >= bytes_s else "bytes", ops, nbytes)
 
     # -- phases --------------------------------------------------------------
     def phase1_card_and_build(self):
@@ -400,8 +440,89 @@ class Smoke:
                   "threshold_sweep: pad rows or -inf rows miscounted")
             if c == 5:
                 self.sweep_wide = args
-        log("phase 3: threshold_sweep k=700000 (padded 700416), G=4096, "
-            "C in {2, 5}: counts exactly equal")
+        log("phase 3: threshold_sweep direct route, k=700000 (padded 700416),"
+            " G=4096 random thresholds, C in {2, 5}: counts exactly equal")
+        self._sweep_ranked_cases()
+        self._sweep_route_choice()
+
+    def sweep_inputs(self, cd, labels, valid, thetas):
+        """Card tensors and the ranked route's axes of numpy inputs."""
+        from repro_torch.kernels.threshold_sweep.ops import rank_axes
+        values, offsets, _ = rank_axes(thetas)
+        args = [self.torch.from_numpy(self.np.ascontiguousarray(a)).to(self.dev)
+                for a in (cd, labels, valid, thetas)]
+        axes = (self.torch.from_numpy(values).to(self.dev),
+                self.torch.from_numpy(offsets))
+        return args, {"axes": axes}
+
+    def sweep_compare(self, args, kw, what):
+        """The ranked kernels vs both plain versions, counts exactly equal.
+        Returns (the kernels' counts, their largest |difference|)."""
+        torch = self.torch
+        got = self.sk.threshold_sweep(*args, **kw)
+        ranked = self.sref.threshold_sweep_ranked_ref(
+            args[0], args[1], args[3], args[2], kw["axes"])
+        direct = self.sref.threshold_sweep_ref(args[0], args[1], args[3],
+                                               args[2])
+        torch.cuda.synchronize()
+        for name, want in (("ranked", ranked), ("brute-force", direct)):
+            check(torch.equal(got, want), f"{what}: ranked kernel differs "
+                  f"from the {name} plain version in "
+                  f"{int((got != want).sum())} entries")
+        return got, max(float((got - want).abs().max()) if want.numel() else 0.0
+                        for want in (ranked, direct))
+
+    def _sweep_ranked_cases(self):
+        from repro_torch.data.sweep_fixtures import edge_fixture, grid_fixture
+        cd, labels, valid, th = edge_fixture(0)
+        cases = {"edge fixture G=48": (cd, labels, valid, th),
+                 "edge fixture G=1": (cd, labels, valid, th[:1])}
+        for c in range(2, 7):
+            for pad in (False, True):
+                cases[f"candidate_grid C={c}{' padded' if pad else ''}"] = \
+                    grid_fixture(200 + c, 700000, c, pad)
+        for what, arrays in cases.items():
+            args, kw = self.sweep_inputs(*arrays)
+            offsets = kw["axes"][1]
+            self.reset_launches()
+            got, _ = self.sweep_compare(args, kw, what)
+            check(self.sk.launches["threshold_sweep_ranked"] == 1,
+                  f"{what}: the ranked kernels were not launched")
+            log(f"phase 3: threshold_sweep ranked route, {what}: k "
+                f"{args[0].shape[0]}, G {args[3].shape[0]}, axes "
+                f"{self.np.diff(offsets.numpy()).tolist()}, counts equal to "
+                f"both plain versions (max sel {int(got[:, 1].max())})")
+            if what.startswith("candidate_grid C=5"):
+                self.sweep_timed.append((what, args, kw))
+
+    def _sweep_route_choice(self):
+        """ops.sweep picks the route from the thresholds' bin count."""
+        from repro_torch.data.sweep_fixtures import bins_thetas
+        from repro_torch.kernels.threshold_sweep import ops as sops
+        np, torch = self.np, self.torch
+        rng = np.random.default_rng(300)
+        for u, route in (((128, 128), "ranked"), ((5, 29, 113), "direct")):
+            th = bins_thetas(u)
+            cd = rng.uniform(0, 1, size=(700000, len(u))).astype(np.float32)
+            labels = rng.random(700000) < 0.1
+            self.reset_launches()
+            pos, sel = sops.sweep(cd, labels, th)
+            check(self.sk.launches[f"threshold_sweep_{route}"] == 1 and
+                  self.sk.launches["threshold_sweep"] == 1,
+                  f"{np.prod(u)} bins: ops.sweep did not take the {route} "
+                  f"route: {self.sk.launches}")
+            want = self.sref.threshold_sweep_ref(
+                *(torch.from_numpy(a).to(self.dev) for a in (
+                    cd, labels.astype(np.float32), th))).cpu().numpy()
+            check((pos == want[:, 0]).all() and (sel == want[:, 1]).all(),
+                  f"{np.prod(u)} bins: ops.sweep counts differ")
+            log(f"phase 3: ops.sweep, {int(np.prod(u))} bins: {route} route, "
+                f"counts equal to the brute-force plain version")
+            if route == "ranked":        # the most bins, rows spread over all
+                self.sweep_timed.append(
+                    (f"{np.prod(u)} bins, uniform rows",
+                     *self.sweep_inputs(cd, labels.astype(np.float32),
+                                        np.ones(len(cd), np.float32), th)))
 
     def _install_recorders(self):
         """Record the main path's first call to each kernel wrapper (and the
@@ -435,6 +556,10 @@ class Smoke:
             launches = self.read_launches()
             check(launches["cnf_join"] > 0 and launches["threshold_sweep"] > 0,
                   f"products {mode}: a kernel was not launched: {launches}")
+            check(launches["threshold_sweep_ranked"] ==
+                  launches["threshold_sweep"],
+                  f"products {mode}: the sweep left the ranked route: "
+                  f"{launches}")
             if mode == "barrier":
                 self.main_launches = launches
             runs[mode] = out
@@ -527,21 +652,37 @@ class Smoke:
             replaces="src/repro/kernels/fused_cnf_join/kernel.py:130",
             launches=self.main_launches["cnf_join"], **row_a))
 
-        # kernel B at the main path's launch
+        # kernel B at the main path's launch: its ranked route
         sargs, skw = self.captured["threshold_sweep"]
-        got = self.sk.threshold_sweep(*sargs, **skw)
-        want = self.sref.threshold_sweep_ref(sargs[0], sargs[1], sargs[3],
-                                             sargs[2])
-        check(torch.equal(got, want), "main-path sweep: counts differ")
-        row_b = self._time_sweep(sargs, skw)
-        row_b.update(max_abs_err=float((got - want).abs().max()), mismatches=0)
-        log(f"phase 5: threshold_sweep main path: cd {tuple(sargs[0].shape)}, "
-            f"G {sargs[3].shape[0]}: " + json.dumps(row_b))
+        check(skw.get("axes") is not None, "main-path sweep: not the ranked "
+              "route")
+        got, err = self.sweep_compare(sargs, skw, "main-path sweep")
+        row_b = self._time_sweep(sargs, skw, one_call=True)
+        row_b.update(max_abs_err=err, mismatches=0)
+        log(f"phase 5: threshold_sweep ranked route, main path: cd "
+            f"{tuple(sargs[0].shape)}, G {sargs[3].shape[0]}, axes "
+            f"{self.np.diff(skw['axes'][1].numpy()).tolist()}, max sel "
+            f"{int(got[:, 1].max())}: " + json.dumps(row_b))
+        routes = {}
+        for what, args, kw in self.sweep_timed:
+            row = self._time_sweep(args, kw, one_call=True)
+            routes[f"ranked, {what}"] = row
+            log(f"phase 5: threshold_sweep ranked route, {what}: k "
+                f"{args[0].shape[0]}, G {args[3].shape[0]}: " + json.dumps(row))
+        wide = self._time_sweep(self.sweep_wide, {}, one_call=True)
+        routes["direct, k 700416, C 5, G 4096 random"] = wide
+        log("phase 5: threshold_sweep direct route, k=700416, C=5, G=4096: "
+            + json.dumps(wide))
+        self._sweep_counts_wall(sargs)
         self.kernels.append(dict(
             name="threshold_sweep", route="cuda",
             source="src/repro_torch/csrc/threshold_sweep.cu",
             replaces="src/repro/kernels/threshold_sweep/kernel.py:60",
-            launches=self.main_launches["threshold_sweep"], **row_b))
+            launches=self.main_launches["threshold_sweep"],
+            sweep_route="ranked",
+            launches_ranked=self.main_launches["threshold_sweep_ranked"],
+            launches_direct=self.main_launches["threshold_sweep_direct"],
+            **row_b, other_shapes=routes))
 
         # production cell: the whole plane for the kernel, the strip for all
         p = self.prod
@@ -560,9 +701,6 @@ class Smoke:
             "full_bound_fp32_ms": bound_fp32, "full_ops": ops,
             "full_bytes": nbytes, "full_tflops": ops / full_ms / 1e9,
             "strip_2048": strip}))
-        wide = self._time_sweep(self.sweep_wide, {})
-        log("phase 5: threshold_sweep k=700416, C=5, G=4096: " +
-            json.dumps(wide))
 
     def _time_cnf(self, tensors, clauses, thetas, tl, tr, er, one_call=False):
         torch = self.torch
@@ -599,16 +737,55 @@ class Smoke:
                 "library_ms": lib_ms, "ops": ops, "bytes": nbytes,
                 "tflops": ops / ms / 1e9, **single}
 
-    def _time_sweep(self, args, kw):
+    def _time_sweep(self, args, kw, one_call=False):
+        """Events, one-call and device time of the sweep's route (``axes``
+        in ``kw``: ranked), its bound and its plain versions' times."""
         k, c = args[0].shape
         g = args[3].shape[0]
-        ms = self.time_ms(lambda: self.sk.threshold_sweep(*args, **kw))
-        plain_ms = self.time_ms(lambda: self.sref.threshold_sweep_ref(
+        axes = kw.get("axes")
+
+        def kernel():
+            self.sk.threshold_sweep(*args, **kw)
+        ms = self.time_ms(kernel)
+        plain_direct_ms = self.time_ms(lambda: self.sref.threshold_sweep_ref(
             args[0], args[1], args[3], args[2]), runs=5)
-        bound, ops, nbytes = self.sweep_bound_ms(k, c, g)
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "operations" if ops / self.flops >= nbytes / self.bw
-                else "bytes", "library_ms": None, "ops": ops, "bytes": nbytes}
+        row = {"route_name": "direct" if axes is None else "ranked", "ms": ms}
+        if axes is None:
+            row["plain_ms"] = plain_direct_ms
+        else:
+            row["plain_ms"] = self.time_ms(
+                lambda: self.sref.threshold_sweep_ranked_ref(
+                    args[0], args[1], args[3], args[2], axes), runs=5)
+            row["plain_direct_ms"] = plain_direct_ms
+        bound, by, ops, nbytes = self.sweep_bound_ms(k, c, g, axes)
+        row.update(bound_ms=bound, bound_by=by, library_ms=None, ops=ops,
+                   bytes=nbytes)
+        if one_call:
+            device, parts = self.device_ms(kernel, by_name=True)
+            self.torch.cuda.synchronize()
+            row.update(ms_one_call=self.time_ms(kernel, reps=1),
+                       device_ms=device, device_parts_ms=parts,
+                       host_ms=self.host_ms(kernel))
+            self.torch.cuda.synchronize()
+        return row
+
+    def _sweep_counts_wall(self, sargs):
+        """Host wall of one ops.sweep_counts call at the main-path shape:
+        route choice, axes, host-to-device copies, launches and the pull."""
+        from repro_torch.kernels.threshold_sweep import ops as sops
+        cd, labels, thetas = (a.cpu().numpy() for a in
+                              (sargs[0], sargs[1], sargs[3]))
+        labels = labels != 0
+        walls = []
+        for _ in range(6):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sops.sweep_counts(cd, labels, thetas)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        log(f"phase 5: ops.sweep_counts wall at the main-path shape (cd "
+            f"{cd.shape}, G {thetas.shape[0]}): median "
+            f"{statistics.median(walls[1:]):.4f} ms of 5 warm calls, first "
+            f"{walls[0]:.4f} ms")
 
 
 if __name__ == "__main__":

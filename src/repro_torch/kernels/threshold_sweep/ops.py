@@ -1,19 +1,25 @@
-"""Padded threshold sweep + candidate grid for step ⑥ (Eq 4).
+"""Threshold sweep + candidate grid for step ⑥ (Eq 4).
 
-``sweep`` pads the inputs to the kernel's tile multiples and returns the
-(pos, sel) counts as float32 arrays, like the JAX reference; the counts
-are exact integers.  ``sweep_counts`` is the guarantee path's entry
-point: it runs the sweep on the requested device — the CUDA kernel on a
-GPU, the plain-torch version on the CPU.
+``sweep`` returns the (pos, sel) counts as float32 arrays, like the JAX
+reference; the counts are exact integers.  It picks the kernel's route
+from the thresholds alone: the ranked route when the distinct threshold
+values of the clauses span at most ``RANKED_MAX_BINS`` rank vectors (every
+``candidate_grid`` up to C = 6), else the direct route, for which it pads
+the inputs to the kernel's tile multiples.  ``sweep_counts`` is the
+guarantee path's entry point: it runs the sweep on the requested device —
+the CUDA kernels on a GPU, the plain-torch versions on the CPU.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.threshold_sweep.kernel import threshold_sweep
+from repro_torch.kernels.threshold_sweep.kernel import (RANKED_MAX_BINS,
+                                                        threshold_sweep)
 
 
 def _pad_rows(x, n, value):
@@ -24,27 +30,49 @@ def _pad_rows(x, n, value):
     return np.pad(x, width, constant_values=value)
 
 
+def rank_axes(thetas: np.ndarray) -> tuple:
+    """The ranked route's axes: per clause, the sorted distinct non-NaN
+    f32 values of ``thetas[:, c]``, with -0.0 merged into +0.0 (they
+    compare equal).  Returns (values f32, concatenated; offsets int32
+    (C + 1,); bins = the product of the axis lengths)."""
+    th = np.asarray(thetas, np.float32)
+    axes = [np.unique(col[~np.isnan(col)] + np.float32(0.0)) for col in th.T]
+    offsets = np.cumsum([0] + [len(a) for a in axes]).astype(np.int32)
+    values = np.concatenate(axes) if axes else np.zeros(0, np.float32)
+    return values, offsets, math.prod(len(a) for a in axes)
+
+
 def sweep(cd: np.ndarray, labels: np.ndarray, thetas: np.ndarray, *,
           tg: int = 256, tk: int = 512, device="cuda"):
-    """Padded sweep. Returns (pos_counts, sel_counts) as float32 (G,) arrays.
+    """Returns (pos_counts, sel_counts) as float32 (G,) arrays.
 
-    Pad rows are excluded by an explicit validity mask (labels and valid
-    padded with 0), not by sentinel distances (``inf <= inf`` is true);
-    the cd pad value is immaterial, 0 keeps the compare well defined.
-    Pad threshold rows are -inf, so they select nothing.
+    The ranked route takes the inputs as they are.  The direct route pads
+    them to ``tk`` / ``tg`` multiples: pad rows are excluded by an explicit
+    validity mask (labels and valid padded with 0), not by sentinel
+    distances (``inf <= inf`` is true); the cd pad value is immaterial, 0
+    keeps the compare well defined.  Pad threshold rows are -inf, so they
+    select nothing.
     """
     dev = resolve_device(device)
     k, c = cd.shape
     g = thetas.shape[0]
-    kp = -(-k // tk) * tk
-    gp = -(-g // tg) * tg
-    cd_p = _pad_rows(cd.astype(np.float32), kp, 0.0)
-    lab_p = _pad_rows(labels.astype(np.float32), kp, 0.0)
-    valid_p = _pad_rows(np.ones(k, np.float32), kp, 0.0)
-    th_p = _pad_rows(thetas.astype(np.float32), gp, -np.inf)
+    cd = cd.astype(np.float32)
+    labels = labels.astype(np.float32)
+    valid = np.ones(k, np.float32)
+    thetas = thetas.astype(np.float32)
+    values, offsets, bins = rank_axes(thetas)
+    if bins <= RANKED_MAX_BINS:
+        axes = (torch.from_numpy(values).to(dev), torch.from_numpy(offsets))
+    else:
+        axes = None
+        kp = -(-k // tk) * tk
+        cd = _pad_rows(cd, kp, 0.0)
+        labels = _pad_rows(labels, kp, 0.0)
+        valid = _pad_rows(valid, kp, 0.0)
+        thetas = _pad_rows(thetas, -(-g // tg) * tg, -np.inf)
     out = threshold_sweep(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                            for a in (cd_p, lab_p, valid_p, th_p)),
-                          tg=tg, tk=tk)
+                            for a in (cd, labels, valid, thetas)),
+                          axes=axes, tg=tg, tk=tk)
     out = out[:g].cpu().numpy().astype(np.float32)
     return out[:, 0], out[:, 1]
 
