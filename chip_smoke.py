@@ -8,8 +8,10 @@ in parallel), holds each kernel against its plain-torch version on the card,
 drives the port's main path (the one-shot FDJ join on ``products`` at
 ``--size 4``, barrier and streaming refinement) through its user entry
 point, checks that both kernels were launched by it, checks the result
-against the plain path on a small input, and times each kernel with CUDA
-events against its bound, its plain version and a library yardstick.
+against the plain path on a small input, times each kernel with CUDA
+events against its bound, its plain version and a library yardstick, and
+then drives the serving path (``JoinService`` over a plane store on the
+card, the fleet, the precision path, trace export) on the same corpus.
 
 Phases, in order; any failure exits non-zero before the last line:
   1. the card (nvidia-smi name and power limit), the kernel builds and
@@ -44,13 +46,34 @@ Phases, in order; any failure exits non-zero before the last line:
      2**14 bins with rows spread over all of them, the
      direct route at the wide case, and the host wall of one
      ``ops.sweep_counts`` call at the main-path shape (route choice and
-     host-to-device copies included).
+     host-to-device copies included);
+  6. serving on products 2800 x 2800 (``serve_join --size 8``), launch
+     counts reset just before and read just after each query: a cold
+     query, two warm barrier and two warm stream queries ($0 extraction,
+     0 plane bytes to the device, the cold pairs, kernel A fed from the
+     ``pack_cache``); ``append_right`` of a quarter of R held out, then a
+     delta query over L x dR equal to a cold execution of the plan over
+     the grown corpus; a perturbed append whose recalibration swaps theta
+     with the sweep on the card, recall >= target after it; a
+     ``precision_target`` 0.9 query on the card against the same query on
+     ``device="cpu"``; a two-tenant fleet, concurrent against serial, the
+     second tenant's cold query riding the first's planes; the production
+     cell's planes pinned in a store on the card, staged by
+     ``pack_features_device`` with 0 bytes to the device, kernel A on a
+     2048-row strip bit-identical to the host-staged strip; one warm
+     query's trace and the ``serve_join --trace-out`` trace checked by
+     ``trace_report --check`` (both written under ``build/traces/``).
+     Each query prints its walls (plan, step ②, refine), kernel A's ms
+     by events around its calls and its launches; a warm query's device
+     busy time comes from the profiler.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
 another order); every other difference fails.  Sweep counts must be equal.
 
-Prints the card line, a ``{"kernels": [...]}`` line, and as its last line
+Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
+``launches`` from the main path, and ``launches_serving`` per serving
+path), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -69,6 +92,10 @@ SRC = os.path.join(ROOT, "src")
 # outside the tensor cores, HBM bandwidth, TF32 on the tensor cores
 PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
 EPS_NOTE = "pairs within D*2^-24 of a threshold"
+# phase 6's corpus: serve_join --size 8 at SERVE_SCALE 0.5, i.e. products
+# 2800 x 2800, the one-shot main path's corpus; a quarter of R is held out
+# for the appends
+SERVE_SIZE = 8
 
 
 def fail(msg):
@@ -100,6 +127,7 @@ def main():
     ctx.phase3_threshold_sweep()
     ctx.phase4_join()
     ctx.phase5_timing()
+    ctx.phase6_serving()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(ctx.smi)
@@ -786,6 +814,419 @@ class Smoke:
             f"{cd.shape}, G {thetas.shape[0]}): median "
             f"{statistics.median(walls[1:]):.4f} ms of 5 warm calls, first "
             f"{walls[0]:.4f} ms")
+
+
+    # -- phase 6: serving ----------------------------------------------------
+    def _serving_hooks(self):
+        """Wrap the engine's kernel-A call once more: CUDA events around
+        each call (kernel A's ms per query) and the emb_r pointer it was
+        given (to show the warm path launches from the ``pack_cache``)."""
+        from repro_torch.kernels.fused_cnf_join import ops as cops
+        torch = self.torch
+        seen = self.serve_seen = {"events": [], "emb_r": []}
+        orig = cops.cnf_join_block
+
+        def call(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(*args, **kw)
+            b.record()
+            seen["events"].append((a, b))
+            seen["emb_r"].append(args[1].data_ptr())
+            return out
+        cops.cnf_join_block = call
+
+    def serve_query(self, svc, what, options=None, append=None):
+        """One query (or append) with the launch counts set to 0 just before
+        and read just after.  Returns (result, row): the walls (plan, step
+        ②, refine), kernel A's ms by events, launches, bytes and
+        dollars."""
+        from repro_torch.obs import Tracer, use_tracer
+        torch = self.torch
+        self.reset_launches()
+        self.serve_seen["events"].clear()
+        self.serve_seen["emb_r"].clear()
+        tracer = Tracer()
+        t0 = time.perf_counter()
+        with use_tracer(tracer):
+            out = svc.append_right(append) if append is not None \
+                else svc.query(options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches()
+        spans = {}
+        for sp in tracer.spans():
+            spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration_s
+        kernel_ms = sum(a.elapsed_time(b) for a, b in self.serve_seen["events"])
+        row = {"wall_s": round(wall, 4), "plan_s": round(spans.get("plan", 0.0), 4),
+               "extract_s": round(spans.get("extract", 0.0), 4),
+               "kernel_a_ms": round(kernel_ms, 5), "launches": launches}
+        if append is None:
+            walls = out.cost.wall_summary()
+            row.update(step2_s=round(walls["step2_wall"], 4),
+                       refine_s=round(walls["refine_wall"], 4),
+                       recalibrate_s=round(spans.get("recalibrate", 0.0), 4),
+                       plan_hit=out.plan_hit, delta_rows=out.delta_rows,
+                       candidates=out.join.candidate_count,
+                       pairs=len(out.pairs), recall=round(out.join.recall, 4),
+                       extraction_usd=out.cost.inference,
+                       bytes_h2d=out.cost.bytes_h2d,
+                       store_hits=out.store["hits"],
+                       store_misses=out.store["misses"],
+                       dedup_hits=out.store["dedup_hits"])
+        else:
+            row.update(rows=out["rows"],
+                       extraction_usd=out["ledger"].inference,
+                       bytes_to_device=out["store"]["bytes_to_device"])
+        log(f"phase 6: {what}: " + json.dumps(row))
+        return out, row
+
+    def _strips(self, n_l, tl=256, l_block=1024):
+        return -(-(-(-n_l // tl) * tl) // l_block)
+
+    def _candidates_in_band(self, got, want, feats, plan, what):
+        """Candidate sets may differ only in pairs within the f32 band of a
+        threshold; returns the differing pairs."""
+        from repro_torch.core.join import apply_conjunct_order
+        from repro_torch.kernels.fused_cnf_join.ops import pack_features
+        diff = sorted(set(got) ^ set(want))
+        if diff:
+            clauses, th = apply_conjunct_order(plan.sc_local.clauses,
+                                               plan.theta, plan.conjunct_order)
+            arrays = pack_features(feats, clauses, tl=256, tr=512)
+            args = [self.torch.from_numpy(x).to(self.dev) for x in arrays[:4]]
+            gap = self.cref.threshold_gap(*args, arrays[4], th,
+                                          [p[0] for p in diff],
+                                          [p[1] for p in diff])
+            check((gap <= self.cref.dot_error_band(args[0].shape[2])).all(),
+                  f"{what}: candidates differ outside the f32 band")
+        return set(diff)
+
+    def phase6_serving(self):
+        """The serving path on the card at the one-shot main path's corpus:
+        products 2800 x 2800 (serve_join --size 8 at SERVE_SCALE 0.5)."""
+        from repro_torch.launch._args import make_dataset
+        from repro_torch.launch.serve_join import SERVE_SCALE
+        from repro_torch.serving.join_service import PlanLibrary
+        t0 = time.perf_counter()
+        self._serving_hooks()
+        self.serving = {}
+        full = make_dataset("products", size=SERVE_SIZE, scale=SERVE_SCALE)
+        n = int(700 * SERVE_SIZE * SERVE_SCALE)
+        check(full.n_l == full.n_r == n,
+              f"products at serve size {SERVE_SIZE}: {full.n_l} x {full.n_r}")
+        svc = self._serve_cold_warm(full)
+        # the delta and recalibration services start from the same base
+        # corpus under the same plan key: the second plans nothing
+        base_plans = PlanLibrary()
+        self._serve_append_delta(full, base_plans)
+        self._serve_recalibration(full, base_plans)
+        self._serve_precision(full)
+        self._serve_fleet(full)
+        self._serve_production_store()
+        self._serve_trace(svc)
+        for entry in self.kernels:
+            key = "cnf_join" if entry["name"] == "cnf_join_block" \
+                else "threshold_sweep"
+            entry["launches_serving"] = {
+                path: counts[key] for path, counts in self.serving.items()}
+        log(f"phase 6: serving ok ({time.perf_counter() - t0:.1f} s)")
+
+    def _serve_cold_warm(self, full):
+        """Cold query, then two warm barrier and two warm stream queries on
+        one service: warm ones charge $0 extraction, move 0 plane bytes,
+        repeat the cold pairs and launch kernel A from the pack_cache."""
+        from repro_torch.core.join import FDJConfig, QueryOptions
+        from repro_torch.serving.join_service import JoinService
+        svc = JoinService(full, FDJConfig(engine="cuda"))
+        cold, row = self.serve_query(svc, "cold query")
+        strips = self._strips(full.n_l)
+        check(row["launches"]["cnf_join"] == strips and
+              row["launches"]["threshold_sweep"] >= 1,
+              f"cold query launches {row['launches']}")
+        check(row["bytes_h2d"] > 0 and row["extraction_usd"] > 0,
+              "cold query: no extraction or upload paid")
+        self.serving["cold"] = row["launches"]
+        cold_ptrs = set(self.serve_seen["emb_r"])
+        for i, stream in enumerate((False, False, True, True)):
+            what = f"warm query {i + 1} ({'stream' if stream else 'barrier'})"
+            warm, row = self.serve_query(svc, what, QueryOptions(stream=stream))
+            check(warm.plan_hit and warm.cost.inference == 0.0
+                  and warm.cost.bytes_h2d == 0
+                  and warm.join.engine_stats.bytes_h2d == 0,
+                  f"{what}: not free: {row}")
+            check(warm.pairs == cold.pairs and
+                  warm.join.candidates == cold.join.candidates,
+                  f"{what}: pairs differ from the cold query's")
+            check(row["launches"]["cnf_join"] == strips and
+                  row["launches"]["threshold_sweep"] == 0,
+                  f"{what}: launches {row['launches']}")
+            # the store hands back the cold query's plane set, whose
+            # pack_cache holds the assembly the cold query built
+            check(set(self.serve_seen["emb_r"]) == cold_ptrs,
+                  f"{what}: kernel A was not fed from the pack_cache")
+        self.serving["warm"] = row["launches"]
+        # the card's busy time in a warm barrier query (profiler: kernels
+        # and memsets), against the query's wall
+        walls = []
+
+        def warm():
+            t0 = time.perf_counter()
+            svc.query()
+            walls.append(time.perf_counter() - t0)
+        busy, parts = self.device_ms(warm, n=3, by_name=True)
+        wall_ms = 1e3 * statistics.median(walls[1:])
+        log("phase 6: warm query on the card (profiler, 3 queries): " +
+            json.dumps({"device_busy_ms": busy, "wall_ms": wall_ms,
+                        "busy_share": busy / wall_ms, "device_parts_ms": parts}))
+        return svc
+
+    def _serve_append_delta(self, full, plans):
+        """append_right of held-out rows, then a delta query over L x dR,
+        equal to a cold execution of the same plan over the grown corpus
+        (up to the f32 band).  Recalibration is off here: it is the next
+        check's subject."""
+        from repro_torch.core.join import FDJConfig, execute_join
+        from repro_torch.data.simulated_llm import SimulatedExtractor
+        from repro_torch.serving.join_service import JoinService, hold_out_right
+        base, rows = hold_out_right(full, full.n_r // 4)
+        cfg = FDJConfig(engine="cuda", recalibrate=False)
+        svc = JoinService(base, cfg, plan_library=plans)
+        self.serve_query(svc, f"delta service cold query ({base.n_l} x {base.n_r})")
+        _, arow = self.serve_query(svc, f"append {len(rows.texts)} rows",
+                                   append=rows)
+        check(arow["bytes_to_device"] > 0, "append uploaded nothing")
+        dq, row = self.serve_query(svc, "delta query")
+        check(dq.plan_hit and dq.delta_rows == len(rows.texts) and
+              row["launches"]["cnf_join"] == self._strips(full.n_l),
+              f"delta query: {row}")
+        check(dq.cost.inference == 0.0 and dq.cost.bytes_h2d == 0,
+              "delta query: not free")
+        self.serving["delta"] = row["launches"]
+        plan = svc._plans[svc._plan_key(cfg)]
+        ext = SimulatedExtractor(svc.dataset, seed=0)
+        self.reset_launches()
+        ref = execute_join(svc.dataset, svc.dataset.make_oracle(), ext, cfg,
+                           plan, keep_candidates=True)
+        feats = ext.materialize(plan.used_specs, ref.cost)
+        diff = self._candidates_in_band(dq.join.candidates, ref.candidates,
+                                        feats, plan, "delta query")
+        check(set(dq.pairs) ^ set(ref.pairs) <= diff,
+              "delta query: pairs differ beyond the candidate band")
+        log(f"phase 6: delta query == cold execution over the grown corpus "
+            f"({len(ref.candidates)} candidates, {len(ref.pairs)} pairs, "
+            f"{len(diff)} differing candidates, all {EPS_NOTE})")
+
+    def _serve_recalibration(self, full, plans):
+        """A perturbed append (junk tokens on every held-out row) breaks the
+        carried theta: the reservoir check must swap it, the swap must run
+        the sweep on the card, and recall is then >= target."""
+        from repro_torch.core.join import FDJConfig
+        from repro_torch.serving.join_service import (JoinService,
+                                                      hold_out_right,
+                                                      perturb_rows)
+        base, rows = hold_out_right(full, full.n_r // 4)
+        # the reservoir keeps the plan's whole threshold sample S' (700 000
+        # pairs) and a proportional top-up: the default cap of 4096 pairs
+        # holds ~1 positive at this corpus's match rate (1 in 2800)
+        cfg = FDJConfig(engine="cuda", reservoir_cap=1_000_000)
+        svc = JoinService(base, cfg, plan_library=plans)
+        cold, _ = self.serve_query(svc, "recalibration service cold query")
+        self.serve_query(svc, f"perturbed append of {len(rows.texts)} rows",
+                         append=perturb_rows(rows, seed=1))
+        q, row = self.serve_query(svc, "recalibrated query")
+        led = q.cost
+        check(led.recalibrations == 1 and led.theta_swaps == 1
+              and led.theta_drift > 0,
+              f"no theta swap: recalibrations {led.recalibrations}, swaps "
+              f"{led.theta_swaps}, drift {led.theta_drift}")
+        check(row["launches"]["threshold_sweep"] >= 1 and
+              row["launches"]["threshold_sweep_ranked"] +
+              row["launches"]["threshold_sweep_direct"] ==
+              row["launches"]["threshold_sweep"],
+              f"the swap did not run the sweep on the card: {row['launches']}")
+        check(q.join.recall >= cfg.recall_target - 1e-12 and q.delta_rows == 0,
+              f"recalibrated recall {q.join.recall} < {cfg.recall_target}")
+        self.serving["recalibration"] = row["launches"]
+        log(f"phase 6: recalibration swapped theta {cold.join.theta.tolist()}"
+            f" -> {q.join.theta.tolist()} (drift {led.theta_drift:.4g}, "
+            f"reservoir ${led.reservoir_cost:.4g}), recall {q.join.recall:.4f}")
+
+    def _serve_precision(self, full):
+        """precision_target 0.9 on the cuda engine gives the pairs of the
+        same query on device="cpu" (the plain-torch path), up to the band."""
+        from repro_torch.core.join import FDJConfig, QueryOptions
+        from repro_torch.data.simulated_llm import SimulatedExtractor
+        from repro_torch.serving.join_service import JoinService
+        opts = QueryOptions(precision_target=0.9)
+        got, row = self.serve_query(JoinService(full, FDJConfig(engine="cuda")),
+                                    "precision 0.9 query (cuda)", opts)
+        t0 = time.perf_counter()
+        cpu_svc = JoinService(full, FDJConfig(engine="cuda", device="cpu"))
+        want = cpu_svc.query(opts)
+        check(got.join.t_prime == want.join.t_prime and
+              (got.join.theta == want.join.theta).all(),
+              "precision query: plans differ between cuda and cpu")
+        plan = cpu_svc._plans[cpu_svc._plan_key(cpu_svc.cfg.with_overrides(
+            precision_target=0.9))]
+        feats = SimulatedExtractor(full, seed=0).materialize(plan.used_specs,
+                                                              want.cost)
+        diff = self._candidates_in_band(got.join.candidates,
+                                        want.join.candidates, feats, plan,
+                                        "precision query")
+        check(got.pairs == want.pairs if not diff else
+              set(got.pairs) ^ set(want.pairs) <= diff,
+              "precision query: cuda and cpu pairs differ")
+        log(f"phase 6: precision 0.9: cuda == cpu ({len(got.pairs)} pairs, "
+            f"{got.join.candidate_count} candidates, {len(diff)} differing "
+            f"candidates; cpu query {time.perf_counter() - t0:.1f} s)")
+
+    def _serve_fleet(self, full):
+        """Two tenants over one store on the card: a concurrent run (two
+        worker threads launching both kernels) gives the serial run's pairs
+        byte for byte; the second tenant's cold query rides the first's
+        planes ($0 extraction, dedup hits)."""
+        from repro_torch.core.join import FDJConfig
+        from repro_torch.serving.fleet import JoinFleet
+        t0 = time.perf_counter()
+        runs = {}
+        for name, workers in (("serial", 1), ("concurrent", 2)):
+            self.reset_launches()
+            with JoinFleet(max_concurrent=workers) as fleet:
+                for tenant in ("a", "b"):
+                    fleet.add_tenant(tenant, full, FDJConfig(engine="cuda"))
+                if workers == 1:
+                    res = [fleet.query("a"), fleet.query("b"),
+                           fleet.query("a"), fleet.query("b")]
+                else:
+                    futs = [fleet.submit(t) for t in ("a", "b", "a", "b")]
+                    res = [f.result(timeout=600) for f in futs]
+                summary = fleet.drain()
+            runs[name] = [sorted(r.pairs) for r in res]
+            launches = self.read_launches()
+            check(launches["cnf_join"] > 0 and summary["failed"] == 0,
+                  f"fleet {name}: {launches}, {summary['failed']} failed")
+            second = res[1]
+            check(second.cost.inference == 0.0 and
+                  second.cost.plane_dedup_hits >= 1,
+                  f"fleet {name}: tenant b's cold query paid extraction "
+                  f"(${second.cost.inference}) or had no dedup hit")
+            log(f"phase 6: fleet {name}: launches {launches}, tenant b cold "
+                f"query dedup hits {second.cost.plane_dedup_hits}, "
+                f"extraction ${second.cost.inference}, walls "
+                f"{[round(r.wall_s, 3) for r in res]}")
+        check(runs["serial"] == runs["concurrent"],
+              "fleet: concurrent pairs differ from serial")
+        self.serving["fleet"] = launches
+        log(f"phase 6: fleet concurrent == serial, byte for byte "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    def _serve_production_store(self):
+        """Planes of the production cell (262144 rows, F_v 4, D 128, phase
+        2's unit vectors) pinned in a store on the card, staged by
+        pack_features_device (0 bytes host to device) and run through
+        kernel A on a 2048-row strip: the mask must equal, bit for bit, the
+        strip staged by the host pack and phase 2's strip."""
+        from repro_torch.core.costs import CostLedger
+        from repro_torch.core.featurize import FeatureData, FeaturizationSpec
+        from repro_torch.kernels.fused_cnf_join import ops as cops
+        from repro_torch.serving.planes import FeaturePlaneStore
+        torch = self.torch
+        emb_l, emb_r = self.prod["args"][:2]
+        clauses, thetas = self.prod["clauses"], self.prod["thetas"]
+        fv = emb_l.shape[0]
+        specs = [FeaturizationSpec(f"f{f}", "", "semantic", "code", f"f{f}")
+                 for f in range(fv)]
+        store = FeaturePlaneStore()
+        host = {}
+        for f, spec in enumerate(specs):
+            for side, emb in (("l", emb_l), ("r", emb_r)):
+                host[side, f] = emb[f].cpu().numpy()
+                store.put(spec, side, "prod", [], host[side, f], "embed", 1.0,
+                          device=emb[f])
+        check(store.bytes_to_device == 0, "pinning device planes uploaded")
+        planes = store.provide(specs, None, CostLedger(), fp_l="prod",
+                               fp_r="prod")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        scaffold = [[f] for f in range(len(clauses))]   # clause c: feature c
+        a.record()
+        staged = cops.stage_planes(planes, scaffold, tl=256, tr=512)
+        b.record()
+        torch.cuda.synchronize()
+        assemble_ms = a.elapsed_time(b)
+        check(staged.bytes_h2d == 0 and staged.kclauses == clauses,
+              "store-staged planes moved bytes or changed the clauses")
+        feats = [FeatureData(s, "embed", host["l", f], host["r", f])
+                 for f, s in enumerate(specs)]
+        t0 = time.perf_counter()
+        hosted = cops.stage_planes(feats, scaffold, tl=256, tr=512)
+        torch.cuda.synchronize()
+        host_stage_s = time.perf_counter() - t0
+        masks = {}
+        for name, st in (("store", staged), ("host", hosted)):
+            strip = (st.emb_l[:, :2048], st.emb_r, st.scal_l[:, :2048], st.scal_r)
+            self.reset_launches()
+            masks[name] = self.ck.cnf_join_block(*strip, clauses, thetas,
+                                                 tl=256, tr=512,
+                                                 early_reject=True)
+            check(self.ck.launches["cnf_join"] == 1, f"{name} strip: no launch")
+        masks["phase 2"] = self.ck.cnf_join_block(*self.prod_strip, clauses,
+                                                  thetas, tl=256, tr=512,
+                                                  early_reject=True)
+        torch.cuda.synchronize()
+        check(torch.equal(masks["store"], masks["host"]) and
+              torch.equal(masks["store"], masks["phase 2"]),
+              "production strip: store-staged mask differs")
+        strip = (staged.emb_l[:, :2048], staged.emb_r, staged.scal_l[:, :2048],
+                 staged.scal_r)
+        ms = self.time_ms(lambda: self.ck.cnf_join_block(
+            *strip, clauses, thetas, tl=256, tr=512, early_reject=True), runs=5)
+        # least time: each used plane read once, the assembly written once
+        staged_bytes = sum(x.numel() * x.element_size() for x in staged.arrays)
+        log("phase 6: production planes through the store: " + json.dumps({
+            "rows": emb_l.shape[1], "f_v": fv, "d": emb_l.shape[2],
+            "resident_bytes": store.resident_bytes,
+            "bytes_h2d_store_staged": staged.bytes_h2d,
+            "bytes_h2d_host_staged": hosted.bytes_h2d,
+            "assemble_ms": assemble_ms,
+            "assemble_bound_ms": 1e3 * 2 * staged_bytes / self.bw,
+            "host_stage_s": round(host_stage_s, 4),
+            "strip_ms": ms, "mask_bits_equal": True}))
+        del staged, hosted, planes, store
+
+    def _serve_trace(self, svc):
+        """One warm query's trace through write_trace, and the serve_join
+        launcher's --trace-out on the card; the port's trace_report --check
+        (in its own process, which imports no JAX) must pass both."""
+        from repro_torch.obs import Tracer, use_tracer, write_trace
+        out_dir = os.path.join(ROOT, "build", "traces")
+        os.makedirs(out_dir, exist_ok=True)
+        warm_path = os.path.join(out_dir, "trace_warm_query.json")
+        tracer = Tracer()
+        with use_tracer(tracer):
+            r = svc.query()
+        write_trace(tracer, warm_path, metadata={
+            "dataset": svc.dataset.name, "engine": "cuda",
+            "wall_summary": r.cost.wall_summary(),
+            "metrics": svc.metrics.as_dict()})
+        cli_path = os.path.join(out_dir, "trace_serve_join.json")
+        env = dict(os.environ, PYTHONPATH=SRC)
+        for cmd in ([sys.executable, "-m", "repro_torch.launch.serve_join",
+                     "--dataset", "products", "--size", "1", "--engine",
+                     "cuda", "--script", "query,query", "--trace-out",
+                     cli_path],
+                    [sys.executable, "-m", "repro_torch.launch.trace_report",
+                     warm_path, "--check"],
+                    [sys.executable, "-m", "repro_torch.launch.trace_report",
+                     cli_path, "--check"]):
+            proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            check(proc.returncode == 0, f"{' '.join(cmd[2:4])} failed:\n"
+                  f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+            if "trace_report" in cmd[2]:
+                log(f"phase 6: {proc.stdout.strip()}")
 
 
 if __name__ == "__main__":

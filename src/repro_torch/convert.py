@@ -18,6 +18,12 @@ Each spec is a dict of ``FeaturizationSpec`` fields (name, description,
 distance_kind, extractor_kind, field, version).  Each plane is
 ``{"spec": spec, "kind": "embed" | "scalar", "data_l": array,
 "data_r": array, "scale": float}``.
+
+A serving plane store's entries (one side of one plane each) are
+``{"spec": spec, "side": "l" | "r", "fingerprint": str, "values": [...],
+"host": array, "kind": "embed" | "scalar", "scale": float}``: the raw
+extracted values, the vectorized plane and the corpus fingerprint it was
+keyed under.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 from repro_torch.core.featurize import FeatureData, FeaturizationSpec
 from repro_torch.core.join import JoinPlan
 from repro_torch.core.scaffold import Scaffold
+from repro_torch.serving.planes import FeaturePlaneStore
 
 
 def spec_from_state(spec: dict) -> FeaturizationSpec:
@@ -65,3 +72,19 @@ def features_from_state(planes: Sequence[dict]) -> list:
                                np.asarray(p["data_r"], np.float32),
                                scale=float(p.get("scale", 1.0))))
     return out
+
+
+def store_from_state(entries: Sequence[dict], *,
+                     device="cuda") -> FeaturePlaneStore:
+    """A ``FeaturePlaneStore`` on ``device`` with every entry pinned, in
+    the order given (the last is the most recently used).  Pinning
+    uploads, so ``bytes_to_device`` counts each plane once."""
+    store = FeaturePlaneStore(device=device)
+    for e in entries:
+        if e["kind"] not in ("embed", "scalar") or e["side"] not in ("l", "r"):
+            raise ValueError(f"bad store entry kind/side "
+                             f"{(e['kind'], e['side'])!r}")
+        store.put(spec_from_state(e["spec"]), e["side"], str(e["fingerprint"]),
+                  list(e["values"]), np.asarray(e["host"], np.float32),
+                  e["kind"], float(e["scale"]))
+    return store

@@ -1,4 +1,5 @@
-"""FDJ — the final algorithm (Alg 6), on PyTorch.
+"""FDJ — the final algorithm (Alg 6) plus the precision extension (Appx C),
+on PyTorch.
 
 ``fdj_join`` wires the full pipeline:
   1. uniform sample S, oracle labels          (cost: labeling)
@@ -10,16 +11,18 @@
   7. full-corpus extraction for used featurizations (cost: inference)
   8. blocked CNF evaluation over L×R -> Ŷ     (repro_torch.engine backend)
   9. refinement: oracle on Ŷ                  (cost: refinement) — precision 1
-
-The Appx-C precision extension (T_P < 1) is not ported yet: a config with
-``precision_target < 1`` raises ``NotImplementedError``.
+     (or Appx-C featurization-precision subsets when T_P < 1)
 
 The pipeline is split at its natural serving seam (DESIGN.md §4):
 ``plan_join`` runs steps ①–⑥ (corpus-size-free, O(sample)) and returns a
 ``JoinPlan``; ``execute_join`` runs steps ⑦–⑨ against any corpus shape.
 Step ⑦ goes through a pluggable *plane provider* — by default the
-extractor's ``materialize``.  ``fdj_join`` composes the two.  Step ⑥'s
-threshold sweep and step ② run on ``FDJConfig.device``.
+extractor's ``materialize`` (cold path), in serving the
+``FeaturePlaneStore`` (device-resident planes, zero re-extraction).
+``fdj_join`` composes the two.  Step ⑥'s threshold sweep and step ② run
+on ``FDJConfig.device``.  The Appx-C path (T_P < 1) draws its subset
+samples from a fresh ``seed + 1`` stream, so a replayed plan (serving)
+executes byte-identically to a cold run.
 
 With ``stream_refinement=True`` steps ⑧ and ⑨ are pipelined: the engine's
 ``evaluate_stream`` emits per-chunk candidates that a ``RefinementPump``
@@ -42,6 +45,7 @@ import numpy as np
 
 from repro_torch.core import generation, scaffold as scaffold_lib
 from repro_torch.core.adj_target import adj_target
+from repro_torch.core.bargain import bargain_precision_subset
 from repro_torch.core.costs import CostLedger
 from repro_torch.core.refine import RefinementPump
 from repro_torch.core.scaffold import Scaffold, min_fpr_thresholds
@@ -75,7 +79,14 @@ class FDJConfig:
     #   measured cheapest-and-most-selective-first order (plan_join rates
     #   them on the threshold sample for free; candidate set is invariant
     #   — the conjunction commutes); False = the scaffold's natural order,
-    #   the A/B control.  Execution-only
+    #   the A/B control.  Execution-only, never part of a serving plan key
+    recalibrate: bool = True       # serving: keep cached plans' theta
+    #   calibrated online — after appends shift plane distributions, the
+    #   JoinService refreshes a labeled reservoir, re-runs adj_target +
+    #   the device threshold sweep, and hot-swaps theta when the cached
+    #   value no longer meets the refreshed target (DESIGN.md §4a);
+    #   execution-only, never part of a serving plan key
+    reservoir_cap: int = 4096      # max labeled reservoir pairs per plan
     seed: int = 0
 
     def with_overrides(self, **overrides) -> "FDJConfig":
@@ -223,19 +234,10 @@ def _sample_pairs(n_l: int, n_r: int, k: int, rng) -> list:
     return [(int(i // n_r), int(i % n_r)) for i in idx]
 
 
-def _check_supported(cfg: FDJConfig) -> None:
-    if cfg.precision_target < 1.0:
-        raise NotImplementedError(
-            "precision_target < 1 needs the Appx-C precision extension "
-            "(core/bargain.py of the JAX package), which repro_torch does "
-            "not port yet (ROADMAP.md, queue 1: the Appx-C precision path)")
-
-
 def plan_join(dataset, oracle, proposer, extractor, cfg: FDJConfig, *,
               ledger: Optional[CostLedger] = None,
               label: Optional[Callable] = None) -> JoinPlan:
     """Steps ①–⑥: sample, generate featurizations, scaffold, thresholds."""
-    _check_supported(cfg)
     # planning is recorded as one retroactive span with stage-boundary
     # events (sampled/featurized/scaffolded/thresholds) — plan_join runs
     # once per query, so the collection cost is irrelevant
@@ -284,7 +286,7 @@ def plan_join(dataset, oracle, proposer, extractor, cfg: FDJConfig, *,
     used_specs = [specs[i] for i in used]
     remap = {f: i for i, f in enumerate(used)}
     sc_local = Scaffold(clauses=[[remap[f] for f in c] for c in sc.clauses])
-    delta_recall = cfg.delta
+    delta_recall = cfg.delta if cfg.precision_target >= 1.0 else cfg.delta / 2.0
     if sc_local.n_clauses and k_plus > 0:
         adj = adj_target(k_plus, sc_local.n_clauses, cfg.recall_target,
                          delta_recall, n_pairs=n_pairs, k_sample=len(s2),
@@ -331,23 +333,30 @@ def execute_join(dataset, oracle, extractor, cfg: FDJConfig, plan: JoinPlan,
     """Steps ⑦–⑨: materialize planes, evaluate the CNF, refine.
 
     ``plane_provider(used_specs, ledger) -> Sequence[FeatureData]`` is the
-    step-⑦ seam: default is the extractor's full-corpus ``materialize``.
+    step-⑦ seam: default is the extractor's full-corpus ``materialize``
+    (cold); the serving layer passes the FeaturePlaneStore's ``provide``
+    (device-resident, charges only misses).
 
     ``keep_candidates=True`` retains the sorted step-② survivor list on
-    the result; one-shot callers leave it off so a degenerate plan doesn't
-    pin O(n_l·n_r) tuples past the join.
+    the result (the serving layer needs it for delta-join merges); one-
+    shot callers leave it off so a degenerate plan doesn't pin O(n_l·n_r)
+    tuples past the join.
     """
-    _check_supported(cfg)
     ledger = ledger if ledger is not None else oracle.ledger
     if label is None:
         label = make_label_fn(oracle, {})
     provider = plane_provider or \
         (lambda specs, led: extractor.materialize(specs, led))
     n_l, n_r = dataset.n_l, dataset.n_r
+    # fresh, plan-independent stream for the Appx-C subset sampler so a
+    # replayed plan (serving) executes byte-identically to a cold run
+    rng = np.random.default_rng(cfg.seed + 1)
 
     # --- 7. plane materialization ---------------------------------------------
     feats: Sequence = []
-    if not plan.degenerate:
+    need_planes = (not plan.degenerate) or \
+        (cfg.precision_target < 1.0 and plan.used_specs)
+    if need_planes:
         with current_tracer().span("extract", specs=len(plan.used_specs)):
             feats = provider(plan.used_specs, ledger)
 
@@ -360,19 +369,26 @@ def execute_join(dataset, oracle, extractor, cfg: FDJConfig, plan: JoinPlan,
         else:
             chunk_iter = _stream_cnf(feats, plan.sc_local, plan.theta, cfg,
                                      order=plan.conjunct_order)
-
-        def refine_chunk(batch):
-            labs = label(batch, "refinement")
-            return {p for p, l in zip(batch, labs) if l}
-        pump = RefinementPump(refine_chunk,
-                              batch_pairs=cfg.refine_batch_pairs,
-                              max_queue_chunks=cfg.pump_queue_chunks)
+        if cfg.precision_target >= 1.0:
+            def refine_chunk(batch):
+                labs = label(batch, "refinement")
+                return {p for p, l in zip(batch, labs) if l}
+            pump = RefinementPump(refine_chunk,
+                                  batch_pairs=cfg.refine_batch_pairs,
+                                  max_queue_chunks=cfg.pump_queue_chunks)
+        else:
+            # Appx C needs quantiles over the whole candidate set: the pump
+            # accumulates the stream and runs the ladder once at drain time
+            pump = RefinementPump(
+                final=lambda cands: _precision_extension(
+                    cands, feats, label, cfg, rng),
+                max_queue_chunks=cfg.pump_queue_chunks)
         pr = pump.run(chunk_iter, ledger=ledger)
         out_pairs = pr.pairs
         cand_arr = pr.candidates
         n_cands = len(cand_arr)
         engine_stats = pr.engine_stats
-    elif plan.degenerate:
+    elif plan.degenerate and cfg.precision_target >= 1.0:
         # refine-everything fallback, labeled in bounded row blocks: per-pair
         # oracle refinement needs no global view, so label block by block
         from repro_torch.engine.base import iter_cross_product_chunks
@@ -393,18 +409,28 @@ def execute_join(dataset, oracle, extractor, cfg: FDJConfig, plan: JoinPlan,
                                    attrs={"pairs": len(block)})
         ledger.record_walls(0.0, time.perf_counter() - t0, 0.0)
     else:
-        cand_arr, engine_stats = _evaluate_cnf(
-            feats, plan.sc_local, plan.theta, cfg, order=plan.conjunct_order)
+        if plan.degenerate:
+            # Appx-C (T_P < 1) needs whole-candidate-set quantiles: the
+            # full list is materialized for the precision ladder only
+            cand_arr = [(i, j) for i in range(n_l) for j in range(n_r)]
+        else:
+            cand_arr, engine_stats = _evaluate_cnf(
+                feats, plan.sc_local, plan.theta, cfg,
+                order=plan.conjunct_order)
         n_cands = len(cand_arr)
         tracer = current_tracer()
         t0 = time.perf_counter()
-        labs = label(cand_arr, "refinement")
-        out_pairs = {p for p, l in zip(cand_arr, labs) if l}
+        if cfg.precision_target >= 1.0:
+            labs = label(cand_arr, "refinement")
+            out_pairs = {p for p, l in zip(cand_arr, labs) if l}
+        else:
+            out_pairs = _precision_extension(cand_arr, feats, label, cfg, rng)
         t1 = time.perf_counter()
         if tracer:
             tracer.record_span("refine_batch", t0, t1,
                                attrs={"pairs": n_cands})
-        ledger.record_walls(engine_stats.wall_s, t1 - t0, 0.0)
+        ledger.record_walls(engine_stats.wall_s if engine_stats else 0.0,
+                            t1 - t0, 0.0)
         ledger.record_engine_stats(engine_stats)
 
     truth = dataset.truth_set
@@ -505,3 +531,38 @@ def _degenerate_chunks(n_l: int, n_r: int):
     from repro_torch.engine.base import CandidateChunk, iter_cross_product_chunks
     for idx, pairs in enumerate(iter_cross_product_chunks(n_l, n_r)):
         yield CandidateChunk(pairs, None, idx)
+
+
+def _precision_extension(cand_pairs, feats, label, cfg: FDJConfig,
+                         rng) -> set:
+    """Appx C: per-featurization precision subsets skip refinement.
+
+    Distances come from the materialized planes (``feats``); on a
+    *degenerate* plan the used specs are materialized up front (free on
+    the serving warm path, where the planes are store-resident).  Runs on
+    the host: the subset samples consume ``rng`` feature by feature, in
+    the reference's order, so both packages draw the same pairs."""
+    if not cand_pairs:
+        return set()
+    remaining = np.arange(len(cand_pairs))
+    accepted: set = set()
+    r = max(len(feats), 1)
+    delta1 = cfg.delta / (2.0 * r)
+    for fd in feats:
+        if remaining.size == 0:
+            break
+        pairs_sub = [cand_pairs[i] for i in remaining]
+        d = fd.pair_distances(pairs_sub)
+
+        def label_fn(idx):
+            return label([pairs_sub[i] for i in idx], "refinement")
+
+        mask = bargain_precision_subset(d, label_fn, cfg.precision_target,
+                                        delta1, rng=rng)
+        accepted |= {pairs_sub[i] for i in np.flatnonzero(mask)}
+        remaining = remaining[~mask]
+    # leftover pairs: oracle refinement (precision 1 on them)
+    left = [cand_pairs[i] for i in remaining]
+    labs = label(left, "refinement")
+    accepted |= {p for p, l in zip(left, labs) if l}
+    return accepted

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -33,6 +34,7 @@ _ARGTYPES = [_C_PTR] * 4 + [_C_LL] * 4 + [_C_INT] * 4 + \
 
 # kernel launches since the last reset (``launches["cnf_join"] = 0``)
 launches = {"cnf_join": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def _check_tiles(n_l: int, n_r: int, tl: int, tr: int) -> None:
@@ -142,10 +144,17 @@ def _launch(tensors, clauses, thetas, tl, tr, early_reject, with_evals):
                          f"{[tuple(t.shape) for t in tensors]}")
     strides = (emb_l.stride(), emb_r.stride(), scal_l.stride(),
                scal_r.stride())
-    for name, st, row in zip(("emb_l", "emb_r", "scal_l", "scal_r"), strides,
-                             ((d, 1), (d, 1), (1,), (1,))):
+    for name, t, st, row in zip(("emb_l", "emb_r", "scal_l", "scal_r"),
+                                tensors, strides,
+                                ((d, 1), (d, 1), (1,), (1,))):
         if st[1:] != row:
             raise ValueError(f"cnf_join_block: {name} rows must be contiguous")
+        # the kernel's 4-byte cp.async copies and scalar loads need float
+        # alignment (the launcher takes its 16-byte copies only where the
+        # embed planes and their strides are 16-byte aligned)
+        if t.data_ptr() % 4:
+            raise ValueError(f"cnf_join_block: {name} data_ptr "
+                             f"{t.data_ptr():#x} is not 4-byte aligned")
     plan = _plan_of(clauses, thetas, fv, fs)
     out = torch.empty((n_l, n_r // 32), dtype=torch.int32, device=dev)
     evals = torch.empty((n_l // tl, n_r // tr), dtype=torch.int32,
@@ -170,5 +179,6 @@ def _launch(tensors, clauses, thetas, tl, tr, early_reject, with_evals):
             with torch.cuda.device(dev):
                 status = fn(*args)
         _build.check(lib, status, "cnf_join_block")
-        launches["cnf_join"] += 1
+        with _COUNT_LOCK:           # fleet workers launch from several threads
+            launches["cnf_join"] += 1
     return (out, evals) if with_evals else out

@@ -2,8 +2,11 @@
 
 ``pack_features`` converts a list of core ``FeatureData`` (+ scaffold clause
 structure) into the kernel's array layout, padding record counts to tile
-multiples and embedding dims to a lane multiple (128).  ``stage_planes``
-uploads the packed planes to the evaluation device.
+multiples and embedding dims to a lane multiple (128).
+``pack_features_device`` writes the same layout on the device from the
+resident per-feature planes of a ``serving.planes.DevicePlaneSet``.
+``stage_planes`` puts the kernel's inputs on the evaluation device: a
+host pack and upload, or the device-side assembly with no upload.
 ``evaluate_corpus_stream`` is the engine behind ``engine="cuda"``: it runs
 the kernel one L-row strip at a time and yields each strip's candidate
 pairs (the plain-torch version when the device is the CPU).
@@ -92,6 +95,70 @@ def _clause_layout(feats: Sequence, clauses: Sequence):
     return kclauses, vec_ids, scal_ids
 
 
+def _pad_embed_device(dst: torch.Tensor, x: torch.Tensor, side: str) -> None:
+    """Write plane ``x`` (n, d) into ``dst`` (pl_n, d_pad, zeros): the
+    device-side equivalent of pack_features' embed padding.  Pad rows
+    carry the missing markers [m=-2, 1] (L) / [1, m=-2] (R) in the last
+    two *pre-padding* columns, so they can never match below theta=1."""
+    n, d = x.shape
+    dst[:n, :d] = x
+    if dst.shape[0] > n:
+        lo, hi = (-2.0, 1.0) if side == "l" else (1.0, -2.0)
+        dst[n:, d - 2] = lo
+        dst[n:, d - 1] = hi
+
+
+def pack_features_device(planes, clauses: Sequence, *, tl: int, tr: int,
+                         lane: int = 128):
+    """``pack_features`` assembled on the planes' device from resident
+    per-feature tensors (serving.planes.DevicePlaneSet) — zero host->device
+    plane bytes.
+
+    Writes the identical values as the host path (padding is constant
+    writes, copies do no arithmetic), so kernel outputs are bit-identical
+    whichever path staged the planes.  The result is always new
+    contiguous tensors, whatever views the plane set holds
+    (``slice_r``).  Assemblies are memoized on the plane set (keyed by
+    used features + padded geometry) so repeated warm queries skip the
+    reshuffle entirely.
+    """
+    kclauses, vec_ids, scal_ids = _clause_layout(planes, clauses)
+    used = sorted({f for c in clauses for f in c})
+    n_l = planes[used[0]].data_l.shape[0]
+    n_r = planes[used[0]].data_r.shape[0]
+    pl_n = -(-n_l // tl) * tl
+    pr_n = -(-n_r // tr) * tr
+    d_max = max([planes[f].data_l.shape[1] for f in vec_ids], default=lane)
+    d_pad = -(-d_max // lane) * lane
+
+    cache = getattr(planes, "pack_cache", None)
+    key = (tuple(used), pl_n, pr_n, d_pad)
+    if cache is not None and key in cache:
+        emb_l, emb_r, scal_l, scal_r = cache[key]
+        return emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r
+
+    dev = planes.device
+    f32 = torch.float32
+    emb_l = torch.zeros((max(len(vec_ids), 1), pl_n, d_pad), dtype=f32,
+                        device=dev)
+    emb_r = torch.zeros((max(len(vec_ids), 1), pr_n, d_pad), dtype=f32,
+                        device=dev)
+    for i, f in enumerate(vec_ids):
+        _pad_embed_device(emb_l[i], planes.device_l(f), "l")
+        _pad_embed_device(emb_r[i], planes.device_r(f), "r")
+    # scalar pad rows hold 1e9 (L) / -1e9 (R), as pack_features pads them
+    scal_l = torch.full((max(len(scal_ids), 1), pl_n), 1e9, dtype=f32,
+                        device=dev)
+    scal_r = torch.full((max(len(scal_ids), 1), pr_n), -1e9, dtype=f32,
+                        device=dev)
+    for i, f in enumerate(scal_ids):
+        scal_l[i, :n_l] = planes.device_l(f)
+        scal_r[i, :n_r] = planes.device_r(f)
+    if cache is not None:
+        cache[key] = (emb_l, emb_r, scal_l, scal_r)
+    return emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r
+
+
 @dataclasses.dataclass(eq=False)
 class StagedPlanes:
     """Kernel inputs on the evaluation device plus the host-to-device
@@ -112,10 +179,26 @@ class StagedPlanes:
 
 def stage_planes(feats: Sequence, clauses: Sequence, *, tl: int, tr: int,
                  lane: int = 128, device="cuda") -> StagedPlanes:
-    """Pack ``FeatureData`` planes on the host and upload them
+    """Stage feature planes for the kernel on ``device``, preferring
+    device residency.
+
+    A plain ``FeatureData`` list is packed on the host and uploaded
     (``bytes_h2d`` = packed bytes, as the reference counts it on any
-    backend)."""
+    backend); a plane set exposing ``device_l``/``device_r``
+    (serving.planes.DevicePlaneSet) is assembled on its own device from
+    the resident tensors (``bytes_h2d`` = 0).  Resident planes on another
+    device than ``device`` raise: they are never moved silently.
+    """
     dev = resolve_device(device)
+    if hasattr(feats, "device_l") and hasattr(feats, "device_r"):
+        have = feats.device
+        if have.type != dev.type or dev.index not in (None, have.index):
+            raise ValueError(
+                f"stage_planes: planes are resident on {have}, but the "
+                f"evaluation device is {dev}")
+        emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r = \
+            pack_features_device(feats, clauses, tl=tl, tr=tr, lane=lane)
+        return StagedPlanes(emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r)
     emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r = pack_features(
         feats, clauses, tl=tl, tr=tr, lane=lane)
     h2d = emb_l.nbytes + emb_r.nbytes + scal_l.nbytes + scal_r.nbytes
@@ -148,7 +231,9 @@ def evaluate_corpus_stream(feats: Sequence, clauses: Sequence, thetas,
     """Streaming corpus evaluation: yields an ``engine.base.ChunkDelta`` per
     L-row block.
 
-    Features are staged once; the kernel then grids one ``l_block``-row
+    Features are staged once (host pack + upload, or assembled from
+    device-resident planes with zero H2D — see ``stage_planes``); the
+    kernel then grids one ``l_block``-row
     strip at a time (``l_block`` a multiple of ``tl``, default one whole
     pass).  Each strip's packed mask is pulled and unpacked immediately,
     so candidates for early rows reach the consumer while later strips

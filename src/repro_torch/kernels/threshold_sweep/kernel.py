@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -38,6 +39,7 @@ _RANKED_ARGTYPES = [_PTR] * 6 + [_INT] * 3 + [_PTR] * 3
 # every call, and each route's calls
 launches = {"threshold_sweep": 0, "threshold_sweep_ranked": 0,
             "threshold_sweep_direct": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def threshold_sweep(cd, labels, valid, thetas, *, axes=None, tg: int = 256,
@@ -95,8 +97,9 @@ def threshold_sweep(cd, labels, valid, thetas, *, axes=None, tg: int = 256,
         with torch.cuda.device(dev):
             status = args[0](*args[1:])
     _build.check(lib, status, "threshold_sweep")
-    launches["threshold_sweep"] += 1
-    launches[route] += 1
+    with _COUNT_LOCK:               # fleet workers launch from several threads
+        launches["threshold_sweep"] += 1
+        launches[route] += 1
     return out
 
 

@@ -1,5 +1,7 @@
 """Shared launcher wiring: dataset generators + the common flag set
-(dataset/size/seed, engine selection, device, streaming)."""
+(dataset/size/seed, engine selection, device, streaming, trace output)
+that ``launch/join.py``, ``launch/serve_join.py`` and
+``launch/serve_fleet.py`` share."""
 
 from __future__ import annotations
 
@@ -45,5 +47,9 @@ def add_common_flags(ap: argparse.ArgumentParser, *,
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--target", type=float, default=0.9)
     ap.add_argument("--delta", type=float, default=0.1)
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write a Perfetto/Chrome trace-event JSON of the "
+                         "run (load in ui.perfetto.dev, or summarize with "
+                         "python -m repro_torch.launch.trace_report FILE)")
     return ap
 

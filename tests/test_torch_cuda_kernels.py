@@ -276,3 +276,124 @@ def test_threshold_sweep_ranked_kernel_full_blocks(cuda_device, u):
     assert torch.equal(got, want)
     assert torch.equal(threshold_sweep_ranked_ref(cd, labels, thetas, valid,
                                                   axes), want)
+
+
+# --- the serving path: planes resident on the card --------------------------
+
+def _police_planes(device, n=12):
+    from repro_torch.core.costs import CostLedger
+    from repro_torch.data import synth
+    from repro_torch.data.cnf_fixtures import representative_cnf
+    from repro_torch.data.simulated_llm import SimulatedExtractor
+    from repro_torch.serving.planes import FeaturePlaneStore, corpus_fingerprint
+    ds = synth.police_records(n_incidents=n, reports_per_incident=2, seed=3)
+    specs, clauses, thetas = representative_cnf(ds)
+    store = FeaturePlaneStore(device=device)
+    planes = store.provide(
+        specs, SimulatedExtractor(ds), CostLedger(),
+        fp_l=corpus_fingerprint(ds.name, "l", ds.texts_l, ds.fields_l),
+        fp_r=corpus_fingerprint(ds.name, "r", ds.texts_r, ds.fields_r))
+    return planes, clauses, thetas
+
+
+@pytest.mark.parametrize("off", [0, 5])
+def test_pack_features_device_on_cuda_matches_host_pack(cuda_device, off):
+    """The assembly on the card writes the host pack's bits, for the
+    whole plane set and for a ragged ``slice_r`` view."""
+    from repro_torch.kernels.fused_cnf_join import ops
+    planes, clauses, _ = _police_planes(cuda_device)
+    planes = planes.slice_r(off) if off else planes
+    assert planes.device.type == "cuda"
+    for tl, tr in ((32, 64), (64, 128)):
+        dev = ops.pack_features_device(planes, clauses, tl=tl, tr=tr)
+        host = ops.pack_features(list(planes), clauses, tl=tl, tr=tr)
+        for got, want in zip(dev[:4], host[:4]):
+            assert got.is_cuda and got.is_contiguous()
+            np.testing.assert_array_equal(
+                got.cpu().numpy().view(np.uint32), want.view(np.uint32))
+        assert dev[4:] == host[4:]
+        staged = ops.stage_planes(planes, clauses, tl=tl, tr=tr,
+                                  device=cuda_device)
+        assert staged.bytes_h2d == 0
+
+
+class _RawCudaArray:
+    """A float32 view at an arbitrary device address (``torch.as_tensor``
+    reads ``__cuda_array_interface__`` without copying)."""
+
+    def __init__(self, ptr, shape):
+        self.__cuda_array_interface__ = {
+            "shape": shape, "typestr": "<f4", "data": (ptr, False),
+            "version": 2, "strides": None}
+
+
+def test_cnf_join_wrapper_rejects_misaligned_view(cuda_device):
+    buf = torch.zeros(4 * 64 * 128 + 64, dtype=torch.uint8,
+                      device=cuda_device)
+    emb = torch.as_tensor(_RawCudaArray(buf.data_ptr() + 2, (1, 64, 128)),
+                          device=cuda_device)
+    assert emb.data_ptr() % 4 == 2          # a view, not an aligned copy
+    ok = torch.zeros((1, 64, 128), device=cuda_device)
+    scal = torch.zeros((1, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="not 4-byte aligned"):
+        cnf_join_block(emb, ok, scal, scal, (((VEC, 0),),), (0.5,),
+                       tl=64, tr=64)
+    with pytest.raises(ValueError, match="not 4-byte aligned"):
+        cnf_join_block(ok, emb, scal, scal, (((VEC, 0),),), (0.5,),
+                       tl=64, tr=64)
+    del buf
+
+
+def test_warm_cuda_query_launches_kernel_without_upload(cuda_device):
+    from repro_torch.core.join import FDJConfig
+    from repro_torch.data import synth
+    from repro_torch.kernels.fused_cnf_join import kernel as ck
+    from repro_torch.serving.join_service import JoinService
+    ds = synth.police_records(n_incidents=15, reports_per_incident=2, seed=3)
+    cfg = FDJConfig(engine="cuda", engine_opts=dict(tl=32, tr=64), seed=0,
+                    mc_trials=4000)
+    svc = JoinService(ds, cfg)
+    assert svc.store.device.type == "cuda"
+    cold = svc.query()
+    before = ck.launches["cnf_join"]
+    warm = svc.query()
+    assert ck.launches["cnf_join"] > before
+    assert warm.plan_hit and warm.pairs == cold.pairs
+    assert warm.cost.inference == 0.0 and warm.cost.bytes_h2d == 0
+    assert warm.join.engine_stats.bytes_h2d == 0
+    # and the same pairs as the plain-torch path on the CPU
+    cpu = JoinService(ds, FDJConfig(engine="cuda", device="cpu",
+                                    engine_opts=dict(tl=32, tr=64), seed=0,
+                                    mc_trials=4000)).query()
+    assert cpu.pairs == cold.pairs
+
+
+def test_fleet_concurrent_cuda_matches_serial(cuda_device):
+    """Worker threads launch both kernels on the current stream: the
+    pairs of a concurrent run equal a serial run's byte for byte."""
+    from repro_torch.core.join import FDJConfig
+    from repro_torch.data import synth
+    from repro_torch.serving.fleet import JoinFleet
+    names = ("a", "b", "c")
+
+    def cfg():
+        return FDJConfig(engine="cuda", engine_opts=dict(tl=32, tr=64),
+                         seed=0, mc_trials=4000)
+
+    def ds():
+        return synth.police_records(n_incidents=12, reports_per_incident=2,
+                                    seed=3)
+    with JoinFleet(max_concurrent=1) as ref:
+        for name in names:
+            ref.add_tenant(name, ds(), cfg())
+        want = {name: [ref.query(name).pairs for _ in range(2)]
+                for name in names}
+    with JoinFleet(max_concurrent=3) as fleet:
+        for name in names:
+            fleet.add_tenant(name, ds(), cfg())
+        futures = [(name, fleet.submit(name))
+                   for _ in range(2) for name in names]
+        got = {}
+        for name, fut in futures:
+            got.setdefault(name, []).append(fut.result(timeout=300).pairs)
+    assert got == want

@@ -9,7 +9,7 @@ stream and barrier modes are identical by its own tests, so each dataset's
 reference runs once.  Also: a reference plan and its planes carried over
 through ``repro_torch.convert`` execute to the reference's pairs; the
 port's main path imports neither jax nor repro; asking for CUDA without a
-GPU raises.
+GPU raises; ``precision_target < 1`` runs the Appx-C path.
 """
 
 import dataclasses
@@ -136,11 +136,20 @@ def test_convert_reference_plan_and_planes(stream):
 
 
 def test_precision_extension_not_ported_raises():
+    """The Appx-C path is ported now: the call that raised
+    NotImplementedError runs and returns the reference's result
+    (tests/test_torch_precision.py covers it in full)."""
+    from repro.core.join import fdj_join as j_fdj_join
     ds = make_dataset("citations", size=SIZES["citations"])
     cfg = FDJConfig(engine="numpy", device="cpu", precision_target=0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fdj_join(ds, ds.make_oracle(), SimulatedProposer(ds),
-                 SimulatedExtractor(ds), cfg)
+    got = fdj_join(ds, ds.make_oracle(), SimulatedProposer(ds),
+                   SimulatedExtractor(ds), cfg)
+    jds = j_dataset("citations", size=SIZES["citations"])
+    want = j_fdj_join(jds, jds.make_oracle(), JProposer(jds), JExtractor(jds),
+                      JCfg(engine="numpy", precision_target=0.9))
+    assert got.pairs == want.pairs
+    assert got.candidate_count == want.candidate_count
+    assert got.cost.total == want.cost.total
 
 
 def test_query_options_resolve():
