@@ -11,7 +11,10 @@ point, checks that both kernels were launched by it, checks the result
 against the plain path on a small input, times each kernel with CUDA
 events against its bound, its plain version and a library yardstick, and
 then drives the serving path (``JoinService`` over a plane store on the
-card, the fleet, the precision path, trace export) on the same corpus.
+card, the fleet, the precision path, trace export) on the same corpus,
+and then the ring engine (``engine="sharded"``: R streamed in bands through
+a prefetch ring, candidates compacted on the card by ``csrc/extract.cu``)
+on the main path's corpus, the production cell and the serving path.
 
 Phases, in order; any failure exits non-zero before the last line:
   1. the card (nvidia-smi name and power limit), the kernel builds and
@@ -65,15 +68,35 @@ Phases, in order; any failure exits non-zero before the last line:
      ``trace_report --check`` (both written under ``build/traces/``).
      Each query prints its walls (plan, step ②, refine), kernel A's ms
      by events around its calls and its launches; a warm query's device
-     busy time comes from the profiler.
+     busy time comes from the profiler;
+  7. the ring engine: (a) the compaction kernel bit-identical to its plain
+     version on random masks (densities 0 to 1, overflow, offsets, up to
+     2**14 x 2**12 bits); (b) the one-shot join on ``products --size 4``
+     through ``launch.join --engine sharded --r-chunk 512`` (launch counts
+     reset just before and read just after: kernel A and the compaction
+     launch once a band step and once a retry or re-dispatch), then the
+     same plan executed through the ring at depths 1, 2 and 4, barrier and
+     stream, each against the cuda engine's candidates, with an overflow
+     retry and ``overlap_s`` 0.0 at depth 1, > 0 deeper; (c) the
+     production cell at ``r_chunk`` 4096: a 2048-row strip's ring pairs
+     equal to the cuda engine's, then the full 262144^2 plane through the
+     ring from phase 6's store (wall, device time by kernel, steps,
+     ``bytes_to_host`` = 12 a step + 8 a pair); (d) warm and delta queries
+     of the serving path with the engine overridden to ``sharded`` (no new
+     plan, 0 bytes to the device), equal to the cuda engine's, and phase
+     6's two-tenant fleet on ``sharded`` (band steps through the fleet's
+     scheduler, concurrent == serial == phase 6's pairs); (e) the
+     ring's traces checked by ``trace_report --check``; the compaction
+     kernel timed at the main path's band and at a production band.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
 another order); every other difference fails.  Sweep counts must be equal.
 
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
-``launches`` from the main path, and ``launches_serving`` per serving
-path), and as its last line
+``launches`` from the main path -- the compaction's from the ring's main
+path, where kernels A and B give theirs as ``launches_ring`` -- and
+``launches_serving`` per serving path), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -128,6 +151,8 @@ def main():
     ctx.phase4_join()
     ctx.phase5_timing()
     ctx.phase6_serving()
+    ctx.phase7_ring()
+    ctx.serving_launches()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(ctx.smi)
@@ -140,11 +165,13 @@ class Smoke:
     def __init__(self, torch):
         import numpy as np
         from repro_torch.kernels import _build
+        from repro_torch.kernels.extract import kernel as ek, ref as eref
         from repro_torch.kernels.fused_cnf_join import kernel as ck, ref as cref
         from repro_torch.kernels.threshold_sweep import kernel as sk, ref as sref
         self.torch, self.np = torch, np
         self.build, self.ck, self.cref, self.sk, self.sref = \
             _build, ck, cref, sk, sref
+        self.ek, self.eref = ek, eref
         self.dev = torch.device("cuda")
         name = torch.cuda.get_device_name(0)
         self.flops, self.bw, self.tf32 = \
@@ -181,7 +208,11 @@ class Smoke:
     def device_ms(self, fn, n=10, by_name=False):
         """Device ms per call of ``fn`` from the profiler's device
         activities (kernels and memsets); with ``by_name`` also each
-        activity's ms per call, keyed by its name's first 40 characters."""
+        activity's ms per call, keyed by its name's first 40 characters.
+        How many times the profiler recorded each activity is left in
+        ``self.device_calls``: a count that is not a multiple of ``n``
+        means records were lost, and the time is then None (not
+        measured)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -192,11 +223,17 @@ class Smoke:
                 fn()
             self.torch.cuda.synchronize()
         # the profiler's own buffer requests show as device activities too
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key != "Activity Buffer Request"]
         parts = {e.key[:40]: e.self_device_time_total / n / 1e3
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and e.key != "Activity Buffer Request"}
+                 for e in events}
+        self.device_calls = {e.key[:40]: e.count for e in events}
         total = sum(parts.values())
+        if any(c % n for c in self.device_calls.values()):
+            log(f"profiler: activity counts {self.device_calls} are not "
+                f"multiples of {n} calls: device time not measured")
+            total = None
         return (total, parts) if by_name else total
 
     @staticmethod
@@ -210,12 +247,13 @@ class Smoke:
 
     def reset_launches(self):
         self.ck.launches["cnf_join"] = 0
+        self.ek.launches["compact"] = 0
         for name in self.sk.launches:
             self.sk.launches[name] = 0
 
     def read_launches(self):
         return {"cnf_join": self.ck.launches["cnf_join"],
-                **self.sk.launches}
+                "compact": self.ek.launches["compact"], **self.sk.launches}
 
     def cnf_compare(self, args, clauses, thetas, *, tl, tr, early_reject,
                     what):
@@ -307,7 +345,8 @@ class Smoke:
             check=True).stdout.strip().splitlines()[0]
         log(f"card: {self.smi}")
         t0 = time.perf_counter()
-        secs = self.build.build_all(["cnf_join", "threshold_sweep"])
+        secs = self.build.build_all(["cnf_join", "threshold_sweep",
+                                     "extract"])
         log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
             f"(parallel nvcc, wall {time.perf_counter() - t0:.2f} s)")
         for name in secs:
@@ -590,6 +629,7 @@ class Smoke:
                   f"{launches}")
             if mode == "barrier":
                 self.main_launches = launches
+                self.phase4_out = out
             runs[mode] = out
             log(f"phase 4: products size 4 {mode}: " + json.dumps({
                 "n_l": out["n_l"], "n_r": out["n_r"], "recall": out["recall"],
@@ -837,7 +877,7 @@ class Smoke:
             return out
         cops.cnf_join_block = call
 
-    def serve_query(self, svc, what, options=None, append=None):
+    def serve_query(self, svc, what, options=None, append=None, phase=6):
         """One query (or append) with the launch counts set to 0 just before
         and read just after.  Returns (result, row): the walls (plan, step
         ②, refine), kernel A's ms by events, launches, bytes and
@@ -879,7 +919,7 @@ class Smoke:
             row.update(rows=out["rows"],
                        extraction_usd=out["ledger"].inference,
                        bytes_to_device=out["store"]["bytes_to_device"])
-        log(f"phase 6: {what}: " + json.dumps(row))
+        log(f"phase {phase}: {what}: " + json.dumps(row))
         return out, row
 
     def _strips(self, n_l, tl=256, l_block=1024):
@@ -917,21 +957,28 @@ class Smoke:
         check(full.n_l == full.n_r == n,
               f"products at serve size {SERVE_SIZE}: {full.n_l} x {full.n_r}")
         svc = self._serve_cold_warm(full)
+        self.serve_svc, self.serve_full = svc, full
         # the delta and recalibration services start from the same base
-        # corpus under the same plan key: the second plans nothing
-        base_plans = PlanLibrary()
+        # corpus under the same plan key: the second plans nothing (nor
+        # does phase 7's delta service)
+        base_plans = self.base_plans = PlanLibrary()
         self._serve_append_delta(full, base_plans)
         self._serve_recalibration(full, base_plans)
         self._serve_precision(full)
         self._serve_fleet(full)
         self._serve_production_store()
         self._serve_trace(svc)
-        for entry in self.kernels:
-            key = "cnf_join" if entry["name"] == "cnf_join_block" \
-                else "threshold_sweep"
-            entry["launches_serving"] = {
-                path: counts[key] for path, counts in self.serving.items()}
         log(f"phase 6: serving ok ({time.perf_counter() - t0:.1f} s)")
+
+    def serving_launches(self):
+        """Each kernel's launches per serving path (phases 6 and 7)."""
+        keys = {"cnf_join_block": "cnf_join",
+                "threshold_sweep": "threshold_sweep",
+                "compact_append": "compact"}
+        for entry in self.kernels:
+            entry["launches_serving"] = {
+                path: counts[keys[entry["name"]]]
+                for path, counts in self.serving.items()}
 
     def _serve_cold_warm(self, full):
         """Cold query, then two warm barrier and two warm stream queries on
@@ -979,7 +1026,8 @@ class Smoke:
         wall_ms = 1e3 * statistics.median(walls[1:])
         log("phase 6: warm query on the card (profiler, 3 queries): " +
             json.dumps({"device_busy_ms": busy, "wall_ms": wall_ms,
-                        "busy_share": busy / wall_ms, "device_parts_ms": parts}))
+                        "busy_share": None if busy is None
+                        else busy / wall_ms, "device_parts_ms": parts}))
         return svc
 
     def _serve_append_delta(self, full, plans):
@@ -1004,6 +1052,7 @@ class Smoke:
         check(dq.cost.inference == 0.0 and dq.cost.bytes_h2d == 0,
               "delta query: not free")
         self.serving["delta"] = row["launches"]
+        self.delta_cuda = dq
         plan = svc._plans[svc._plan_key(cfg)]
         ext = SimulatedExtractor(svc.dataset, seed=0)
         self.reset_launches()
@@ -1094,6 +1143,8 @@ class Smoke:
         for name, workers in (("serial", 1), ("concurrent", 2)):
             self.reset_launches()
             with JoinFleet(max_concurrent=workers) as fleet:
+                # phase 7's fleet reuses this plan (it plans nothing)
+                self.fleet_plans = fleet.plan_library
                 for tenant in ("a", "b"):
                     fleet.add_tenant(tenant, full, FDJConfig(engine="cuda"))
                 if workers == 1:
@@ -1118,6 +1169,7 @@ class Smoke:
                 f"{[round(r.wall_s, 3) for r in res]}")
         check(runs["serial"] == runs["concurrent"],
               "fleet: concurrent pairs differ from serial")
+        self.fleet_pairs = runs["serial"]
         self.serving["fleet"] = launches
         log(f"phase 6: fleet concurrent == serial, byte for byte "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -1194,7 +1246,11 @@ class Smoke:
             "assemble_bound_ms": 1e3 * 2 * staged_bytes / self.bw,
             "host_stage_s": round(host_stage_s, 4),
             "strip_ms": ms, "mask_bits_equal": True}))
-        del staged, hosted, planes, store
+        # phase 7 runs the ring over these planes (and the pack_cache
+        # entry of this assembly)
+        self.prod_store = dict(store=store, planes=planes, specs=specs,
+                               scaffold=scaffold, host=host)
+        del staged, hosted
 
     def _serve_trace(self, svc):
         """One warm query's trace through write_trace, and the serve_join
@@ -1227,6 +1283,541 @@ class Smoke:
                   f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
             if "trace_report" in cmd[2]:
                 log(f"phase 6: {proc.stdout.strip()}")
+
+    # -- phase 7: the ring engine ------------------------------------------
+    def phase7_ring(self):
+        """The ring engine (``engine="sharded"``) and its compaction kernel:
+        (a) the kernel against its plain version, (b) the main path and
+        the same plan at every ring depth, (c) the production cell, (d)
+        the serving path, (e) traces; then the kernel's timing rows."""
+        t0 = time.perf_counter()
+        self.ring = {}
+        self._compaction_fixtures()
+        self._ring_main_path()
+        self._ring_depths()
+        self._ring_production()
+        self._ring_serving()
+        self._ring_fleet()
+        self._ring_traces()
+        self._compaction_entry()
+        log(f"phase 7: ring ok ({time.perf_counter() - t0:.1f} s)")
+
+    def compaction_compare(self, packed, cap, count=0, what="",
+                           **offsets):
+        """Kernel vs plain version on the same CUDA inputs: the buffers
+        and counts must be equal, bit for bit.  Returns the count and what
+        was measured: buffer rows that differ, the largest absolute
+        difference of a buffer entry, and the count's difference."""
+        torch = self.torch
+        got_buf = torch.full((cap, 2), -1, dtype=torch.int32, device=self.dev)
+        want_buf = got_buf.clone()
+        start = torch.full((), count, dtype=torch.int32, device=self.dev)
+        _, got = self.ek.compact_append(packed, got_buf, start, **offsets)
+        _, want = self.eref.compact_append_ref(packed, want_buf, count,
+                                               **offsets)
+        torch.cuda.synchronize()
+        gap = (got_buf.long() - want_buf.long()).abs()
+        rows = int((gap.amax(dim=1) > 0).sum()) if cap else 0
+        err = int(gap.max()) if cap else 0
+        count_diff = int(got) - int(want)
+        check(count_diff == 0 and rows == 0,
+              f"compaction {what}: kernel differs from its plain version "
+              f"(count {int(got)} vs {int(want)}, {rows} buffer rows differ)")
+        return int(got), rows, err, count_diff
+
+    def _random_words(self, rng, nl, nw, density):
+        """int32 (nl, nw) mask on the card, each bit set at ``density``;
+        and its number of set bits."""
+        np = self.np
+        bits = rng.random((nl, nw * 32)) < density
+        words = np.packbits(bits, axis=-1, bitorder="little").view(np.int32)
+        return (self.torch.from_numpy(np.ascontiguousarray(words)).to(self.dev),
+                int(bits.sum()))
+
+    def _compaction_fixtures(self):
+        """(a): random masks from 1 word to 2**14 x 2**12 bits at densities
+        0 to 1, with room to spare, with overflow, with offsets and a
+        non-zero starting count."""
+        np = self.np
+        rng = np.random.default_rng(15)
+        cases = 0
+        for nl, nw in ((1, 1), (7, 3), (33, 5), (64, 12), (300, 17),
+                       (1 << 14, 128)):
+            for density in (0.0, 1e-3, 0.5, 1.0):
+                packed, n = self._random_words(rng, nl, nw, density)
+                check(self.compaction_compare(packed, 0, what="count only")[0]
+                      == n, f"compaction {nl}x{nw}: count != {n}")
+                for cap, offs in ((n + 16, {}), (n // 2, {}),
+                                  (n + 16, dict(row_offset=4096,
+                                                col_offset=262112))):
+                    got, _, _, _ = self.compaction_compare(
+                        packed, cap, count=7, what=f"{nl}x{nw} d{density}",
+                        **offs)
+                    check(got == n + 7, f"compaction {nl}x{nw}: count {got}")
+                    cases += 1
+        log(f"phase 7: compaction kernel == plain version on {cases} "
+            f"fixtures (buffers and counts bit for bit; up to 2^14 x 2^12 "
+            f"bits, overflow, offsets)")
+
+    @staticmethod
+    def _ring_events(spans):
+        """(band steps, overflow events, re-dispatched steps) of a trace."""
+        steps = sum(1 for sp in spans if sp.name.startswith("band_step["))
+        events = [e.name for sp in spans for e in sp.events]
+        return steps, events.count("overflow"), events.count("redispatch")
+
+    def _ring_main_path(self):
+        """(b) the main path: the one-shot join through the launcher's
+        function with ``--engine sharded --r-chunk 512 --prefetch-depth
+        2``, launch counts set to 0 just before it and read just after."""
+        from repro_torch.launch.join import run_join
+        out_dir = os.path.join(ROOT, "build", "traces")
+        os.makedirs(out_dir, exist_ok=True)
+        path = self.ring["trace_main"] = os.path.join(out_dir,
+                                                      "trace_ring_join.json")
+        self.reset_launches()
+        t0 = time.perf_counter()
+        out = run_join("products", size=4, engine="sharded", r_chunk=512,
+                       prefetch_depth=2, trace_out=path)
+        wall = time.perf_counter() - t0
+        launches = self.read_launches()
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+        steps = sum(1 for e in trace if e["ph"] == "X"
+                    and e["name"].startswith("band_step["))
+        retries = sum(1 for e in trace if e["ph"] == "i"
+                      and e["name"] in ("overflow", "redispatch"))
+        check(steps == 6 and retries >= 1, f"ring main path: {steps} band "
+              f"steps, {retries} retries (want 6 steps and a retry)")
+        check(launches["cnf_join"] == launches["compact"] == steps + retries
+              and launches["threshold_sweep"] >= 1,
+              f"ring main path launches {launches}, steps {steps}, "
+              f"retries {retries}")
+        barrier = self.phase4_out
+        for key in ("candidates", "theta", "clauses", "recall"):
+            check(out[key] == barrier[key], f"ring main path vs the cuda "
+                  f"join: {key} {out[key]} vs {barrier[key]}")
+        eng = out["engine"]
+        check(eng["engine"] == "sharded" and eng["overlap_s"] > 0,
+              f"ring main path engine stats {eng}")
+        self.ring_launches = launches
+        log("phase 7: products size 4 through sharded (launcher, r_chunk 512,"
+            " depth 2): " + json.dumps({
+                "candidates": out["candidates"], "theta": out["theta"],
+                "recall": out["recall"], "wall_s": round(wall, 3),
+                "walls": out["walls"], "steps": steps, "retries": retries,
+                "launches": launches, "bytes_to_host": eng["bytes_to_host"],
+                "overlap_s": eng["overlap_s"],
+                "dispatch_wall_s": eng["dispatch_wall_s"],
+                "pull_wall_s": eng["pull_wall_s"]}))
+
+    def _ring_depths(self):
+        """(b) one plan of products --size 4, executed through the cuda
+        engine and through the ring at depths 1, 2, 4, barrier and
+        stream: candidates equal up to the f32 band, a retry seen,
+        overlap_s 0.0 at depth 1 and > 0 deeper."""
+        from repro_torch.core.costs import CostLedger
+        from repro_torch.core.join import (FDJConfig, execute_join,
+                                           make_label_fn, plan_join)
+        from repro_torch.data.simulated_llm import (SimulatedExtractor,
+                                                    SimulatedProposer)
+        from repro_torch.launch._args import make_dataset
+        from repro_torch.obs import Tracer, use_tracer
+        torch = self.torch
+        ds = make_dataset("products", size=4)
+        oracle = ds.make_oracle()
+        ext = SimulatedExtractor(ds)
+        label = make_label_fn(oracle, {})
+        cfg = FDJConfig(engine="cuda")
+        t0 = time.perf_counter()
+        plan = plan_join(ds, oracle, SimulatedProposer(ds), ext, cfg,
+                         ledger=oracle.ledger, label=label)
+        plan_s = time.perf_counter() - t0
+
+        def run(c):
+            """One execution on its own ledger (walls of this run only);
+            labels come from the shared cache, as a serving plan's do."""
+            self.reset_launches()
+            tracer = Tracer()
+            t0 = time.perf_counter()
+            with use_tracer(tracer):
+                res = execute_join(ds, oracle, ext, c, plan,
+                                   ledger=CostLedger(), label=label,
+                                   keep_candidates=True)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, self.read_launches(), tracer
+        ref, ref_wall, _, _ = run(cfg)
+        feats = ext.materialize(plan.used_specs, ref.cost)
+        band = self._ring_first_band(feats, plan, cfg)
+        rows = {"cuda": {"wall_s": round(ref_wall, 4),
+                         "step2_s": ref.cost.wall_summary()["step2_wall"],
+                         "bytes_to_host": ref.engine_stats.bytes_to_host,
+                         "candidates": ref.candidate_count}}
+        for depth in (1, 2, 4):
+            for stream in (False, True):
+                what = f"depth {depth} {'stream' if stream else 'barrier'}"
+                c = cfg.with_overrides(
+                    engine="sharded", prefetch_depth=depth,
+                    stream_refinement=stream,
+                    engine_opts={"sharded": {"r_chunk": 512}})
+                res, wall, launches, tracer = run(c)
+                steps, overflows, redis = self._ring_events(tracer.spans())
+                diff = self._candidates_in_band(
+                    res.candidates, ref.candidates, feats, plan,
+                    f"ring {what}")
+                check(set(res.pairs) ^ set(ref.pairs) <= diff,
+                      f"ring {what}: pairs differ beyond the candidate band")
+                st = res.engine_stats
+                check(steps == 6 and overflows >= 1 and
+                      redis == overflows * (depth - 1),
+                      f"ring {what}: steps {steps}, overflows {overflows}, "
+                      f"re-dispatches {redis}")
+                check(launches["cnf_join"] == launches["compact"] ==
+                      steps + overflows + redis,
+                      f"ring {what}: launches {launches}")
+                check((st.overlap_s == 0.0) if depth == 1
+                      else (st.overlap_s > 0), f"ring {what}: overlap_s "
+                      f"{st.overlap_s}")
+                check(st.bytes_to_host == 12 * steps + 8 * overflows
+                      + 8 * res.candidate_count,
+                      f"ring {what}: bytes_to_host {st.bytes_to_host}")
+                rows[what] = {
+                    "wall_s": round(wall, 4),
+                    "step2_s": res.cost.wall_summary()["step2_wall"],
+                    "dispatch_wall_s": st.dispatch_wall_s,
+                    "pull_wall_s": st.pull_wall_s,
+                    "overlap_s": st.overlap_s,
+                    "bytes_to_host": st.bytes_to_host,
+                    "candidates": res.candidate_count,
+                    "differing": len(diff), "steps": steps,
+                    "retries": overflows + redis,
+                    "launches": launches["cnf_join"]}
+        got = {p for p in res.candidates if p[1] < 512}
+        check(band == got, f"ring band 0: {len(band)} pairs in its mask vs "
+              f"{len(got)} the ring emitted")
+        again, wall, _, _ = run(cfg)         # the cuda engine once more, warm
+        rows["cuda again"] = {
+            "wall_s": round(wall, 4),
+            "step2_s": again.cost.wall_summary()["step2_wall"],
+            "candidates": again.candidate_count}
+        self.ring["depths"] = rows
+        log(f"phase 7: one plan (plan_join {plan_s:.1f} s), cuda engine vs "
+            f"ring, r_chunk 512: " + json.dumps(rows))
+
+    def _ring_first_band(self, feats, plan, cfg):
+        """Kernel A at the ring's own shape: the main path's first band
+        (all of L x columns [0, 512), staged as the ring stages it, tiles
+        128 x 128, early reject, with the evals grid) against its plain
+        version; its mask is kept for the compaction's timing row."""
+        from repro_torch.core.join import apply_conjunct_order
+        from repro_torch.kernels.fused_cnf_join import ops as cops
+        order = plan.conjunct_order if cfg.order_conjuncts else None
+        clauses, theta = apply_conjunct_order(plan.sc_local.clauses,
+                                              plan.theta, order)
+        thetas = tuple(float(t) for t in theta)
+        staged = cops.stage_planes(feats, clauses, tl=128, tr=512)
+        emb_l, emb_r, scal_l, scal_r = staged.arrays
+        args = (emb_l, emb_r[:, :512], scal_l, scal_r[:, :512])
+        n_mis, gap = self.cnf_compare(args, staged.kclauses, thetas, tl=128,
+                                      tr=128, early_reject=True,
+                                      what="ring band 0")
+        packed = self.ck.cnf_join_block(*args, staged.kclauses, thetas,
+                                        tl=128, tr=128, early_reject=True)
+        rows = emb_l.shape[1]
+        ii, jj = self.np.nonzero(self.cref.unpack_mask(packed, 512))
+        keep = (ii < staged.n_l) & (jj < staged.n_r)
+        # the ring's initial capacity: the timing row compacts at it
+        self.ring["main_band"] = (packed, max(4096, 4 * rows))
+        log(f"phase 7: kernel A == plain at the ring's shape ({rows} x 512, "
+            f"tiles 128 x 128, evals grid equal): {n_mis} bits differ inside"
+            f" the f32 band (largest gap {gap:.3g}), {len(ii)} bits set")
+        return set(zip(ii[keep].tolist(), jj[keep].tolist()))
+
+    def _ring_production(self):
+        """(c) the production cell through the ring at r_chunk 4096: the
+        2048-row strip's pairs equal the cuda engine's; then the whole
+        262144^2 plane from phase 6's store."""
+        from repro_torch.core.featurize import FeatureData
+        from repro_torch.engine import get_engine
+        torch = self.torch
+        st = self.prod_store
+        scaffold, thetas = st["scaffold"], self.prod["thetas"]
+        specs, host = st["specs"], st["host"]
+        n = self.prod["args"][0].shape[1]
+        steps = -(-n // 4096)
+        strip = [FeatureData(s, "embed", host["l", f][:2048], host["r", f])
+                 for f, s in enumerate(specs)]
+        walls, res = {}, {}
+        for name, eng in (("cuda", get_engine("cuda")),
+                          ("ring", get_engine("sharded", r_chunk=4096))):
+            self.reset_launches()
+            t0 = time.perf_counter()
+            res[name] = eng.evaluate(strip, scaffold, thetas)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            if name == "ring":
+                launches = self.read_launches()
+                check(launches["cnf_join"] == launches["compact"] == steps,
+                      f"production strip ring launches {launches}")
+        check(res["ring"].candidates == res["cuda"].candidates,
+              "production strip: ring pairs differ from the cuda engine's")
+        log(f"phase 7: production strip 2048 x {n}: ring == cuda engine "
+            "(" + json.dumps({
+                "candidates": len(res["ring"].candidates),
+                "ring_wall_s": round(walls["ring"], 4),
+                "cuda_wall_s": round(walls["cuda"], 4),
+                "ring_bytes_to_host": res["ring"].stats.bytes_to_host,
+                "cuda_bytes_to_host": res["cuda"].stats.bytes_to_host}) + ")")
+        strip_pairs = res["ring"].candidates
+        del res, strip
+
+        planes = st["planes"]
+        eng = get_engine("sharded", r_chunk=4096)
+        self.reset_launches()
+        t0 = time.perf_counter()
+        full = eng.evaluate(planes, scaffold, thetas)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches()
+        s = full.stats
+        check(launches["cnf_join"] == launches["compact"] == steps,
+              f"production plane launches {launches}")
+        check(s.bytes_to_host == 12 * steps + 8 * s.n_candidates
+              and s.bytes_h2d == 0,
+              f"production plane: bytes_to_host {s.bytes_to_host} for "
+              f"{s.n_candidates} candidates, bytes_h2d {s.bytes_h2d}")
+        check([p for p in full.candidates if p[0] < 2048] == strip_pairs,
+              "production plane: rows < 2048 differ from the strip's pairs")
+        device, parts = self.device_ms(
+            lambda: eng.evaluate(planes, scaffold, thetas), n=1, by_name=True)
+        self.ring["production"] = dict(
+            wall_s=wall, candidates=s.n_candidates, steps=steps,
+            bytes_to_host=s.bytes_to_host, mask_bytes=n * n // 8,
+            device_ms=device, device_parts_ms=parts,
+            dispatch_wall_s=s.dispatch_wall_s, pull_wall_s=s.pull_wall_s,
+            overlap_s=s.overlap_s, conjunct_evals=s.conjunct_evals)
+        log(f"phase 7: production plane {n}^2 through the ring (r_chunk "
+            f"4096, {steps} steps, from the store): " +
+            json.dumps(self.ring["production"]))
+        # a production band for the compaction's timing row: band 0's mask
+        from repro_torch.kernels.fused_cnf_join import ops as cops
+        staged = cops.stage_planes(planes, scaffold, tl=128, tr=4096)
+        emb_l, emb_r, scal_l, scal_r = staged.arrays
+        self.ring["prod_band"] = self.ck.cnf_join_block(
+            emb_l, emb_r[:, :4096], scal_l, scal_r[:, :4096],
+            staged.kclauses, thetas, tl=128, tr=128, early_reject=True)
+
+    def _ring_serving(self):
+        """(d) the serving path with the engine overridden to sharded (an
+        execution-only option: the cached plan is used, nothing plans): a
+        warm query of phase 6's service, then a delta query of a service
+        over phase 6's base corpus and plan library, each equal to the
+        cuda engine's, with 0 bytes to the device."""
+        from repro_torch.core.join import FDJConfig, QueryOptions
+        from repro_torch.serving.join_service import JoinService, hold_out_right
+        ring = QueryOptions(engine="sharded")
+        svc, full = self.serve_svc, self.serve_full
+        warm, row = self.serve_query(svc, "warm query (sharded)", ring,
+                                     phase=7)
+        want = svc.query()
+        check(warm.plan_hit and warm.cost.inference == 0.0 and
+              warm.cost.bytes_h2d == 0 and warm.join.engine_stats.bytes_h2d
+              == 0 and warm.join.engine_stats.engine == "sharded",
+              f"sharded warm query: not free or not the ring: {row}")
+        check(warm.pairs == want.pairs and
+              warm.join.candidate_count == want.join.candidate_count,
+              "sharded warm query: pairs differ from the cuda engine's")
+        check(row["launches"]["cnf_join"] == row["launches"]["compact"] >= 6
+              and row["launches"]["threshold_sweep"] == 0,
+              f"sharded warm query launches {row['launches']}")
+        self.serving["warm (sharded)"] = row["launches"]
+        walls = []
+
+        def warm_ring():
+            t0 = time.perf_counter()
+            svc.query(ring)
+            walls.append(time.perf_counter() - t0)
+        busy, parts = self.device_ms(warm_ring, n=3, by_name=True)
+        wall_ms = 1e3 * statistics.median(walls[1:])
+        log("phase 7: warm sharded query on the card (profiler, 3 queries): "
+            + json.dumps({"device_busy_ms": busy, "wall_ms": wall_ms,
+                          "busy_share": None if busy is None
+                          else busy / wall_ms,
+                          "device_parts_ms": parts}))
+        base, rows = hold_out_right(full, full.n_r // 4)
+        cfg = FDJConfig(engine="cuda", recalibrate=False)
+        dsvc = JoinService(base, cfg, plan_library=self.base_plans)
+        cold, _ = self.serve_query(dsvc, "delta service cold query (plan "
+                                         "from the library)", phase=7)
+        check(cold.plan_hit or cold.cost.labeling == 0.0,
+              "delta service: the plan was built again")
+        self.serve_query(dsvc, f"append {len(rows.texts)} rows", append=rows,
+                         phase=7)
+        dq, row = self.serve_query(dsvc, "delta query (sharded)", ring,
+                                   phase=7)
+        want = self.delta_cuda
+        check(dq.plan_hit and dq.delta_rows == len(rows.texts) and
+              dq.cost.inference == 0.0 and dq.cost.bytes_h2d == 0,
+              f"sharded delta query: {row}")
+        check(dq.pairs == want.pairs and dq.join.candidates ==
+              want.join.candidates, "sharded delta query: pairs or "
+              "candidates differ from the cuda delta query's")
+        check(row["launches"]["cnf_join"] == row["launches"]["compact"] > 0,
+              f"sharded delta query launches {row['launches']}")
+        self.serving["delta (sharded)"] = row["launches"]
+        log(f"phase 7: sharded warm and delta queries == cuda "
+            f"({len(warm.pairs)} and {len(dq.pairs)} pairs, bytes_h2d 0)")
+
+    def _ring_fleet(self):
+        """Phase 6's two-tenant fleet on the ring engine, with phase 6's
+        plan library (nothing plans): every band step takes a ticket of
+        the fleet's scheduler, and the concurrent run gives the serial
+        run's pairs, which are phase 6's cuda fleet's."""
+        from repro_torch.core.join import FDJConfig
+        from repro_torch.serving.fleet import JoinFleet
+        t0 = time.perf_counter()
+        runs = {}
+        for name, workers in (("serial", 1), ("concurrent", 2)):
+            self.reset_launches()
+            with JoinFleet(max_concurrent=workers) as fleet:
+                fleet.plan_library = self.fleet_plans
+                for tenant in ("a", "b"):
+                    fleet.add_tenant(tenant, self.serve_full,
+                                     FDJConfig(engine="sharded"))
+                if workers == 1:
+                    res = [fleet.query(t) for t in ("a", "b", "a", "b")]
+                else:
+                    futs = [fleet.submit(t) for t in ("a", "b", "a", "b")]
+                    res = [f.result(timeout=600) for f in futs]
+                summary = fleet.drain()
+            launches = self.read_launches()
+            runs[name] = [sorted(r.pairs) for r in res]
+            check(summary["failed"] == 0 and summary["band_steps"] > 0 and
+                  summary["band_steps"] == launches["cnf_join"] ==
+                  launches["compact"], f"sharded fleet {name}: band steps "
+                  f"{summary['band_steps']}, launches {launches}")
+            check(all(r.join.engine_stats.engine == "sharded" for r in res),
+                  f"sharded fleet {name}: a query left the ring")
+            log(f"phase 7: fleet on sharded, {name}: band steps "
+                f"{summary['band_steps']}, interleaves "
+                f"{summary['interleaves']}, launches {launches}, walls "
+                f"{[round(r.wall_s, 3) for r in res]}")
+        check(runs["serial"] == runs["concurrent"] == self.fleet_pairs,
+              "sharded fleet: concurrent, serial and phase 6's pairs differ")
+        self.serving["fleet (sharded)"] = launches
+        log(f"phase 7: fleet on sharded concurrent == serial == phase 6's "
+            f"cuda fleet ({time.perf_counter() - t0:.1f} s)")
+
+    def _ring_traces(self):
+        """(e) the main path's ring trace (launcher ``--trace-out``) and a
+        sharded warm query's trace, each through ``trace_report --check``
+        in its own process (which imports no JAX)."""
+        from repro_torch.core.join import QueryOptions
+        from repro_torch.obs import Tracer, use_tracer, write_trace
+        svc = self.serve_svc
+        path = os.path.join(ROOT, "build", "traces", "trace_ring_warm.json")
+        tracer = Tracer()
+        with use_tracer(tracer):
+            r = svc.query(QueryOptions(engine="sharded"))
+        write_trace(tracer, path, metadata={
+            "dataset": svc.dataset.name, "engine": "sharded",
+            "wall_summary": r.cost.wall_summary(),
+            "metrics": svc.metrics.as_dict()})
+        tracks = {sp.track for sp in tracer.spans()
+                  if sp.name.startswith("band_step[")}
+        check(tracks == {"ring0", "ring1"}, f"ring trace tracks {tracks}")
+        env = dict(os.environ, PYTHONPATH=SRC)
+        for trace in (self.ring["trace_main"], path):
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.trace_report",
+                 trace, "--check"], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=300)
+            check(proc.returncode == 0, f"trace_report --check {trace} "
+                  f"failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+            log(f"phase 7: {proc.stdout.strip()}")
+
+    def _time_compaction(self, packed, cap, col_offset):
+        """Events, one-call and device ms of the compaction kernel on
+        ``packed`` (into a fresh buffer each call's worth of slots), its
+        plain version's and ``torch.nonzero``'s on the unpacked bool band,
+        and its bytes bound: the mask read once, 8 bytes a pair written,
+        and the block sums' and bases' passes (written, read, written,
+        read)."""
+        torch = self.torch
+        nl, nw = packed.shape
+        buf = torch.full((cap, 2), -1, dtype=torch.int32, device=self.dev)
+        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+        plain_buf = buf.clone()
+
+        def kernel():
+            return self.ek.compact_append(packed, buf, zero,
+                                          col_offset=col_offset)
+        count = int(kernel()[1])
+        ms = self.time_ms(kernel)
+        plain_ms = self.time_ms(lambda: self.eref.compact_append_ref(
+            packed, plain_buf, 0, col_offset=col_offset), runs=5)
+        # the library yardstick's input: the band unpacked to bools, made
+        # outside the timing (row blocks bound the int32 temporaries)
+        dense = torch.empty((nl, nw * 32), dtype=torch.bool, device=self.dev)
+        shifts = torch.arange(32, dtype=torch.int32, device=self.dev)
+        step = max(1, (1 << 24) // (32 * nw))
+        for r0 in range(0, nl, step):
+            dense[r0:r0 + step] = ((packed[r0:r0 + step, :, None] >> shifts)
+                                   & 1).bool().reshape(-1, nw * 32)
+        check(int(dense.sum()) == count, "unpacked band: wrong popcount")
+        library_ms = self.time_ms(lambda: torch.nonzero(dense), runs=5)
+        del dense
+        blocks = -(-nl * nw // 4096)
+        nbytes = 4 * nl * nw + 8 * min(count, cap) + 4 * 4 * blocks + 8
+        device, parts = self.device_ms(kernel, by_name=True)
+        calls = self.device_calls
+        bound_ms = 1e3 * nbytes / self.bw
+        if device is not None and device < bound_ms:
+            # the mask is read whole: less than its bytes over the HBM rate
+            # is a profiler reading, not the kernel's time
+            log(f"compaction {nl}x{nw}: profiler device time {device:.6f} ms "
+                f"below the bytes bound {bound_ms:.6f} ms: not measured")
+            device = None
+        return {"mask": [nl, nw], "candidates": count, "cap": cap,
+                "ms": ms, "ms_one_call": self.time_ms(kernel, reps=1),
+                "device_ms": device, "device_parts_ms": parts,
+                "device_calls": calls,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": "torch.nonzero on the unpacked bool band",
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "bytes": nbytes}
+
+    def _compaction_entry(self):
+        """The compaction kernel's row of the kernels line, timed at the
+        ring main path's first band (as recorded) and at a production
+        band; both checked bit for bit first."""
+        from repro_torch.engine.extract import grow_caps
+        packed, cap = self.ring.pop("main_band")
+        n, rows, err, dn = self.compaction_compare(packed, cap,
+                                                   what="main-path band")
+        # timed at the capacity its retry ran at, where every pair is written
+        main = self._time_compaction(packed, int(grow_caps([cap], [n])[0]), 0)
+        band = self.ring.pop("prod_band")
+        n, rows_p, err_p, dn_p = self.compaction_compare(
+            band, 1 << 20, what="production band")
+        prod = self._time_compaction(band, max(4096, 4 * band.shape[0]), 0)
+        log("phase 7: compaction, main path's first band: " + json.dumps(main))
+        log(f"phase 7: compaction, production band {band.shape[0]} x "
+            f"{32 * band.shape[1]} ({n} pairs): " + json.dumps(prod))
+        self.kernels.append(dict(
+            name="compact_append", route="cuda",
+            source="src/repro_torch/csrc/extract.cu",
+            replaces="src/repro/engine/extract.py:53",
+            launches=self.ring_launches["compact"],
+            max_abs_err=max(err, err_p), mismatches=rows + rows_p,
+            count_diff=[dn, dn_p], **{k: main[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "ms_one_call", "device_ms", "mask", "candidates")},
+            production_band=prod))
+        for entry in self.kernels[:2]:
+            key = "cnf_join" if entry["name"] == "cnf_join_block" \
+                else "threshold_sweep"
+            entry["launches_ring"] = self.ring_launches[key]
 
 
 if __name__ == "__main__":

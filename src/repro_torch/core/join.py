@@ -65,9 +65,9 @@ class FDJConfig:
     max_iter: int = 8              # Alg 1 iterations
     mc_trials: int = 20000
     block: int = 4096              # L/R block edge for step-2 evaluation
-    engine: str = "cuda"           # numpy | cuda (repro_torch.engine)
+    engine: str = "cuda"           # numpy | cuda | sharded (repro_torch.engine)
     device: str = "cuda"           # where the threshold sweep and the cuda
-    #   engine run; "cpu" runs the kernels' plain-torch versions
+    #   and sharded engines run; "cpu" runs the kernels' plain-torch versions
     engine_opts: dict = dataclasses.field(default_factory=dict)
     #   extra get_engine kwargs (tile sizes etc.) — either flat kwargs for
     #   cfg.engine, or keyed per engine name ({"cuda": {...}, ...}) so a
@@ -75,6 +75,9 @@ class FDJConfig:
     stream_refinement: bool = False  # pipeline step ⑨ over step ②'s stream
     refine_batch_pairs: int = 512  # oracle batch size inside the pump
     pump_queue_chunks: int = 4     # bounded chunk queue (engine backpressure)
+    prefetch_depth: Optional[int] = None  # sharded engine: band steps in
+    #   flight at once (None = engine default, 2; 1 = serial A/B control);
+    #   execution-only, never part of a serving plan key
     order_conjuncts: bool = True   # evaluate conjuncts in the plan's
     #   measured cheapest-and-most-selective-first order (plan_join rates
     #   them on the threshold sample for free; candidate set is invariant
@@ -130,7 +133,7 @@ class QueryOptions:
     some engine call site).  ``refresh_plan`` / ``incremental`` are
     serving execution directives, not config: they never enter the plan
     key."""
-    engine: Optional[str] = None          # numpy | cuda
+    engine: Optional[str] = None          # numpy | cuda | sharded
     stream: Optional[bool] = None         # pipeline refinement over step ②
     recall_target: Optional[float] = None
     precision_target: Optional[float] = None
@@ -517,8 +520,10 @@ def _get_engine(cfg: FDJConfig):
         opts = dict(opts.get(cfg.engine, {}))
     if cfg.engine == "numpy":
         opts.setdefault("block", cfg.block)
-    if cfg.engine == "cuda":
+    if cfg.engine in ("cuda", "sharded"):
         opts.setdefault("device", cfg.device)
+    if cfg.engine == "sharded" and cfg.prefetch_depth is not None:
+        opts.setdefault("prefetch_depth", cfg.prefetch_depth)
     return get_engine(cfg.engine, **opts)
 
 

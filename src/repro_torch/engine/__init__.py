@@ -1,7 +1,7 @@
 """Step-② evaluation engines.
 
-``get_engine("numpy" | "cuda", **opts)`` is the single entry point used by
-``core.join`` and ``launch.join``.
+``get_engine("numpy" | "cuda" | "sharded", **opts)`` is the single entry
+point used by ``core.join`` and the launchers.
 """
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ from __future__ import annotations
 from repro_torch.engine.base import (CandidateChunk, CnfEngine, EngineResult,
                                      EngineStats)
 
-ENGINES = ("numpy", "cuda")
+ENGINES = ("numpy", "cuda", "sharded")
 
 
 def get_engine(name: str, **opts) -> CnfEngine:
@@ -19,6 +19,9 @@ def get_engine(name: str, **opts) -> CnfEngine:
     if name == "cuda":
         from repro_torch.engine.cuda_engine import CudaEngine
         return CudaEngine(**opts)
+    if name == "sharded":
+        from repro_torch.engine.sharded import ShardedEngine
+        return ShardedEngine(**opts)
     raise ValueError(f"unknown engine {name!r}; expected one of {ENGINES}")
 
 

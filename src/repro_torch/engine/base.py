@@ -5,13 +5,16 @@ per-clause tied thresholds (Lemma D.1 form) — over the full L×R cross
 product and returns the surviving candidate pairs.  Everything downstream
 (refinement, precision subsets) is O(candidates); everything upstream
 (featurization) is O(n_l + n_r); this stage is the only O(n_l · n_r)
-compute in the system, so it gets its own subsystem with two backends:
+compute in the system, so it gets its own subsystem with three backends:
 
-  * ``numpy`` — single-host blocked loop (reference semantics)
-  * ``cuda``  — single-device fused CUDA kernel, packed-bitmask host
-                transfer (its plain-torch version on ``device="cpu"``)
+  * ``numpy``   — single-host blocked loop (reference semantics)
+  * ``cuda``    — single-device fused CUDA kernel, packed-bitmask host
+                  transfer (its plain-torch version on ``device="cpu"``)
+  * ``sharded`` — the ring engine: R streamed in bands through a prefetch
+                  ring with on-device candidate compaction; host traffic
+                  is O(candidates)
 
-Both backends must return the *identical* candidate set for identical
+All backends must return the *identical* candidate set for identical
 inputs (guarded by tests/test_torch_engines.py).  Engines also report
 ``EngineStats`` so runs can compare host-transfer bytes.
 
@@ -25,8 +28,9 @@ Semantics contract (shared across backends, enforced here):
   * candidates are returned as a row-major-sorted list of (i, j) tuples.
 
 Streaming contract (DESIGN.md §3a): ``evaluate_stream`` yields
-``CandidateChunk``s incrementally as the backend scans the plane — both
-backends emit one chunk per L-row block.  Chunks are pairwise disjoint, each
+``CandidateChunk``s incrementally as the backend scans the plane — the
+numpy/cuda backends emit one chunk per L-row block, the sharded backend
+one chunk per R-band step.  Chunks are pairwise disjoint, each
 chunk's candidates are row-major sorted *within* the chunk, and the sorted
 union over all chunks is bit-identical to ``evaluate().candidates``
 (``evaluate`` is literally a drain of the stream).  Downstream consumers
@@ -84,7 +88,8 @@ class EngineStats:
     overlap_s: float = 0.0
     # bytes moved device -> host to recover the candidate set.  The numpy
     # backend computes on the host (0 by definition); the cuda backend
-    # pulls the packed n_l×n_r/8 bitmask.
+    # pulls the packed n_l×n_r/8 bitmask; the sharded backend pulls only
+    # per-step counts plus the compacted (i, j) pairs.
     bytes_to_host: int = 0
     # bytes moved host -> device to stage the feature planes for this
     # evaluation.  Cold path: the full packed plane set.  Warm serving path

@@ -1,8 +1,9 @@
 """FDJ join launcher — the paper's end-to-end pipeline as a CLI, on PyTorch.
 
   PYTHONPATH=src python -m repro_torch.launch.join --dataset products \
-      --size 4 --engine cuda [--stream] [--device cpu] \
-      [--precision-target 0.9] [--trace-out t.json]
+      --size 4 --engine cuda|sharded [--stream] [--device cpu] \
+      [--prefetch-depth 2 --r-chunk 512] [--precision-target 0.9] \
+      [--trace-out t.json]
 
 Prints one JSON report: recall/precision, the cost breakdown relative to
 the naive all-pairs join, step-② engine stats and the per-phase walls
@@ -22,7 +23,8 @@ from repro_torch.core.costs import naive_join_cost
 from repro_torch.core.join import (FDJConfig, execute_join, make_label_fn,
                                    plan_join)
 from repro_torch.data.simulated_llm import SimulatedExtractor, SimulatedProposer
-from repro_torch.launch._args import add_common_flags, make_dataset
+from repro_torch.launch._args import (add_common_flags, engine_opts_from,
+                                      make_dataset)
 from repro_torch.obs import Tracer, current_tracer, use_tracer, write_trace
 
 
@@ -30,13 +32,17 @@ def run_join(dataset: str = "police_records", target: float = 0.9,
              delta: float = 0.1, engine: str = "cuda", size: float = 1.0,
              seed: int = 0, stream: bool = False, device: str = "cuda", *,
              precision_target: float = 1.0,
+             prefetch_depth: Optional[int] = None,
+             r_chunk: Optional[int] = None,
              trace_out: Optional[str] = None) -> dict:
     """One cold join (``fdj_join``'s two halves, timed apart)."""
     ds = make_dataset(dataset, size=size, seed=seed)
     oracle = ds.make_oracle()
     cfg = FDJConfig(recall_target=target, delta=delta, engine=engine,
                     precision_target=precision_target, device=device,
-                    seed=seed, stream_refinement=stream)
+                    seed=seed, stream_refinement=stream,
+                    prefetch_depth=prefetch_depth,
+                    engine_opts=engine_opts_from(r_chunk))
     # one extractor and one label cache across both halves, as fdj_join
     # shares them: extraction is charged on first touch, refinement reuses
     # the sample labels
@@ -55,7 +61,8 @@ def run_join(dataset: str = "police_records", target: float = 0.9,
     if tracer is not None:
         write_trace(tracer, trace_out, metadata={
             "dataset": ds.name, "engine": engine, "stream": stream,
-            "device": device, "wall_summary": res.cost.wall_summary(),
+            "device": device, "prefetch_depth": prefetch_depth,
+            "wall_summary": res.cost.wall_summary(),
             "breakdown": res.cost.breakdown(),
         })
     naive = naive_join_cost(ds.texts_l, ds.texts_r)
@@ -88,6 +95,7 @@ def main():
                    args.size, args.seed, stream=args.stream,
                    device=args.device,
                    precision_target=args.precision_target,
+                   prefetch_depth=args.prefetch_depth, r_chunk=args.r_chunk,
                    trace_out=args.trace_out)
     print(json.dumps(out, indent=1))
 

@@ -1,7 +1,8 @@
 """Fleet-serving launcher: N tenants, one store, K workers.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve_fleet --engine cuda \
-      [--device cpu] --tenants 4 --queries 3 --shared --max-concurrent 2
+  PYTHONPATH=src python -m repro_torch.launch.serve_fleet --engine sharded \
+      [--device cpu] [--prefetch-depth 2 --r-chunk 512] --tenants 4 \
+      --queries 3 --shared --max-concurrent 2
 
 Builds a ``JoinFleet``, registers ``--tenants`` tenants (``--shared``
 gives every tenant the SAME corpus — the plane/plan dedup demo;
@@ -10,8 +11,9 @@ queries per tenant concurrently through the admission loop.  Prints one
 JSON event per completed query (which tenant, recall, extraction $,
 dedup hits, wall) and a fleet summary: per-tenant ledgers, p50/p99 query
 wall from the ``fleet.query_wall_s`` histogram, scheduler band-step /
-interleave counts (0 until an engine streams bands through the
-scheduler), and the shared store's counters.
+interleave counts (the sharded engine, the default, enqueues each band
+step through the fleet's scheduler; the other engines stream no bands
+and leave them 0), and the shared store's counters.
 """
 
 from __future__ import annotations
@@ -20,19 +22,20 @@ import argparse
 import json
 
 from repro_torch.core.join import FDJConfig
-from repro_torch.launch._args import add_common_flags, make_dataset
+from repro_torch.launch._args import (add_common_flags, engine_opts_from,
+                                      make_dataset)
 from repro_torch.launch.serve_join import SERVE_SCALE
 from repro_torch.obs import Tracer, use_tracer, write_trace
 from repro_torch.serving.fleet import JoinFleet
 
 
-def run_fleet(dataset: str = "police_records", engine: str = "cuda",
+def run_fleet(dataset: str = "police_records", engine: str = "sharded",
               stream: bool = False, size: float = 1.0, target: float = 0.9,
               delta: float = 0.1, seed: int = 0, n_tenants: int = 2,
               queries: int = 2, shared: bool = True,
               max_concurrent: int = 2, byte_budget=None, tenant_budget=None,
-              oracle_latency=0.0, trace_out=None,
-              device: str = "cuda") -> dict:
+              engine_opts=None, prefetch_depth=None, oracle_latency=0.0,
+              trace_out=None, device: str = "cuda") -> dict:
     fleet = JoinFleet(byte_budget=byte_budget, device=device,
                       max_concurrent=max_concurrent)
     for t in range(n_tenants):
@@ -40,7 +43,9 @@ def run_fleet(dataset: str = "police_records", engine: str = "cuda",
                           seed=seed if shared else seed + t,
                           scale=SERVE_SCALE)
         cfg = FDJConfig(recall_target=target, delta=delta, engine=engine,
-                        device=device, stream_refinement=stream, seed=seed)
+                        device=device, stream_refinement=stream, seed=seed,
+                        prefetch_depth=prefetch_depth,
+                        engine_opts=engine_opts or {})
         fleet.add_tenant(f"t{t}", ds, cfg, byte_budget=tenant_budget,
                          oracle_factory=(
                              lambda d=ds: d.make_oracle(oracle_latency)))
@@ -87,7 +92,7 @@ def run_fleet(dataset: str = "police_records", engine: str = "cuda",
 
 
 def main():
-    ap = add_common_flags(argparse.ArgumentParser())
+    ap = add_common_flags(argparse.ArgumentParser(), engine_default="sharded")
     ap.add_argument("--tenants", type=int, default=2)
     ap.add_argument("--queries", type=int, default=2,
                     help="queries submitted per tenant")
@@ -108,6 +113,8 @@ def main():
     run_fleet(args.dataset, args.engine, args.stream, args.size, args.target,
               args.delta, args.seed, args.tenants, args.queries, args.shared,
               args.max_concurrent, args.byte_budget, args.tenant_budget,
+              engine_opts=engine_opts_from(args.r_chunk),
+              prefetch_depth=args.prefetch_depth,
               oracle_latency=args.oracle_latency, trace_out=args.trace_out,
               device=args.device)
 

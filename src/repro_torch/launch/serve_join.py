@@ -1,7 +1,8 @@
 """Join-serving launcher: load a corpus, serve a scripted query stream.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_join \
-      --dataset police_records --engine cuda [--device cpu] --holdout 40 \
+      --dataset police_records --engine cuda|sharded [--device cpu] \
+      [--prefetch-depth 2 --r-chunk 512] --holdout 40 \
       --script "query,query,append=20,query,append,query@target=0.8"
 
 Script ops (comma-separated, run in order against one JoinService):
@@ -24,7 +25,8 @@ import argparse
 import json
 
 from repro_torch.core.join import FDJConfig, QueryOptions
-from repro_torch.launch._args import add_common_flags, make_dataset
+from repro_torch.launch._args import (add_common_flags, engine_opts_from,
+                                      make_dataset)
 from repro_torch.obs import Tracer, use_tracer, write_trace
 from repro_torch.serving.join_service import DeltaRows, JoinService, hold_out_right
 from repro_torch.serving.planes import FeaturePlaneStore
@@ -73,13 +75,16 @@ def run_serve(dataset: str = "police_records", engine: str = "cuda",
               delta: float = 0.1, holdout: int = 0,
               script: str = "query,query", seed: int = 0,
               byte_budget=None, trace_out=None,
-              device: str = "cuda") -> dict:
+              device: str = "cuda", engine_opts=None,
+              prefetch_depth=None) -> dict:
     ds = _dataset(dataset, size, seed)
     pool = None
     if holdout:
         ds, pool = hold_out_right(ds, holdout)
     cfg = FDJConfig(recall_target=target, delta=delta, engine=engine,
-                    device=device, stream_refinement=stream, seed=seed)
+                    device=device, stream_refinement=stream, seed=seed,
+                    prefetch_depth=prefetch_depth,
+                    engine_opts=engine_opts or {})
     svc = JoinService(ds, cfg,
                       store=FeaturePlaneStore(byte_budget, device=device))
     tracer = Tracer() if trace_out else None
@@ -159,7 +164,9 @@ def main():
     args = ap.parse_args()
     run_serve(args.dataset, args.engine, args.stream, args.size, args.target,
               args.delta, args.holdout, args.script, args.seed,
-              args.byte_budget, trace_out=args.trace_out, device=args.device)
+              args.byte_budget, trace_out=args.trace_out, device=args.device,
+              engine_opts=engine_opts_from(args.r_chunk),
+              prefetch_depth=args.prefetch_depth)
 
 
 if __name__ == "__main__":

@@ -19,13 +19,13 @@ One fleet fronts N ``JoinService`` tenants (DESIGN.md §8a):
     and budget pressure releases the *most-over-budget* tenant's LRU
     entries — never another tenant's working set (planes.py).
   * **Band-step interleaving.**  ``BandScheduler`` is the FIFO ticket
-    gate a band-streaming engine passes each band-step enqueue through,
+    gate the sharded (ring) engine passes each band-step enqueue through,
     so K concurrent queries take turns on the device instead of the first
-    sweep monopolizing its queue.  No engine of this package streams
-    bands yet (the ring engine is later work), so ``_gated_cfg`` leaves
-    each tenant's config as it is and the counters stay 0.  Tenants'
-    kernel launches go onto the current stream from their worker
-    threads; the results are byte-identical to a serial run.
+    sweep monopolizing its queue: ``_gated_cfg`` keys the scheduler under
+    each tenant's ``engine_opts["sharded"]``.  The numpy and cuda engines
+    stream no bands and never see it.  Tenants' kernel launches go onto
+    the current stream from their worker threads; the results are
+    byte-identical to a serial run.
   * **Admission.**  ``submit`` enqueues a request on its tenant's FIFO
     queue and returns a future; ``max_concurrent`` workers admit requests
     round-robin across tenants (one in flight per tenant — a
@@ -193,12 +193,18 @@ class JoinFleet:
         return list(self._rr)
 
     def _gated_cfg(self, cfg: FDJConfig) -> FDJConfig:
-        """The config a tenant runs under.  The JAX package routes its
-        sharded engine's band steps through ``self.scheduler`` here; no
-        engine of this package takes a scheduler, so the config is
-        returned unchanged (an ``engine_opts`` key for a missing engine
-        would break the per-engine keying of ``core.join._get_engine``)."""
-        return cfg
+        """Route the config's sharded-engine dispatches through this
+        fleet's scheduler.  Flat engine_opts are first keyed under the
+        config's own engine so the scheduler entry never leaks into
+        another backend's constructor."""
+        from repro_torch.engine import ENGINES
+        opts = dict(cfg.engine_opts)
+        if opts and not (set(opts) <= set(ENGINES)):
+            opts = {cfg.engine: opts}
+        sharded = dict(opts.get("sharded", {}))
+        sharded["scheduler"] = self.scheduler
+        opts["sharded"] = sharded
+        return cfg.with_overrides(engine_opts=opts)
 
     # -- submission ----------------------------------------------------------
 

@@ -7,6 +7,11 @@ on a GPU machine that has only the port's dependencies:
     python -m pytest -q tests/test_torch_cuda_kernels.py
 
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes.
+The compaction kernel (``csrc/extract.cu``) must give its plain version's
+buffer and count bit for bit, on the fixtures of
+``tests/test_torch_extract.py`` (which hold the plain version against
+the JAX package) and on a 2**14 x 2**12 random mask; the ring engine on
+the card must give the CPU ring's chunks.
 The threshold sweep's ranked route is held against both plain versions
 (``threshold_sweep_ranked_ref`` and the brute-force
 ``threshold_sweep_ref``) on the fixtures of
@@ -397,3 +402,120 @@ def test_fleet_concurrent_cuda_matches_serial(cuda_device):
         for name, fut in futures:
             got.setdefault(name, []).append(fut.result(timeout=300).pairs)
     assert got == want
+
+
+# --- the compaction kernel and the ring engine ---------------------------------
+
+def _words(seed, nl, nw, density):
+    rng = np.random.default_rng(seed)
+    bits = rng.random((nl, nw, 32)) < density
+    words = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+def _compact_both(device, packed, cap, count=0, **offsets):
+    """(kernel buffer, count), (plain buffer, count) on the same inputs."""
+    from repro_torch.kernels.extract.kernel import compact_append
+    from repro_torch.kernels.extract.ref import compact_append_ref
+    fill = torch.full((cap, 2), -1, dtype=torch.int32)
+    got = compact_append(packed.to(device), fill.to(device),
+                         torch.full((), count, dtype=torch.int32,
+                                    device=device), **offsets)
+    want = compact_append_ref(packed, fill.clone(), count, **offsets)
+    torch.cuda.synchronize()
+    return (got[0].cpu(), int(got[1])), (want[0], int(want[1]))
+
+
+@pytest.mark.parametrize("density", [0.0, 1e-3, 0.5, 1.0])
+@pytest.mark.parametrize("nl,nw,cap_extra", [
+    (1, 1, 16), (7, 3, 16), (33, 5, 16), (64, 12, 16), (64, 12, -40),
+    (300, 17, 0),      # more than one block of 4096 words, a ragged tail
+])
+def test_compaction_kernel_matches_plain_version(cuda_device, nl, nw,
+                                                 cap_extra, density):
+    packed = _words(nl * 100 + nw, nl, nw, density)
+    n_set = int(np.unpackbits(packed.numpy().view(np.uint8)).sum())
+    cap = max(n_set + cap_extra, 0)
+    for offsets in (dict(), dict(row_offset=4096, col_offset=262112)):
+        got, want = _compact_both(cuda_device, packed, cap, **offsets)
+        assert torch.equal(got[0], want[0]) and got[1] == want[1] == n_set
+
+
+@pytest.mark.parametrize("density", [1e-3, 0.5])
+def test_compaction_kernel_on_a_2_14_by_2_12_mask(cuda_device, density):
+    packed = _words(14, 1 << 14, (1 << 12) // 32, density)
+    n_set = int(np.unpackbits(packed.numpy().view(np.uint8)).sum())
+    for cap in (n_set + 8, n_set // 2):
+        got, want = _compact_both(cuda_device, packed, cap, count=5,
+                                  col_offset=4096)
+        assert torch.equal(got[0], want[0]) and got[1] == want[1] == n_set + 5
+
+
+def test_compaction_kernel_appends_and_unaligned_masks(cuda_device):
+    """A second call appends from the first's device count; a mask that
+    starts 4 bytes past a 16-byte boundary takes the one-word loads."""
+    from repro_torch.kernels.extract import kernel as ek
+    a, b = _words(1, 40, 9, 0.3), _words(2, 40, 9, 0.3)
+    flat = torch.empty(b.numel() + 1, dtype=torch.int32)
+    flat[1:] = b.reshape(-1)
+    dev_b = flat.to(cuda_device)[1:].view(40, 9)
+    assert dev_b.data_ptr() % 16 == 4
+    cap = 6000
+    before = ek.launches["compact"]
+    buf = torch.full((cap, 2), -1, dtype=torch.int32, device=cuda_device)
+    buf, cnt = ek.compact_append(a.to(cuda_device), buf, 0)
+    buf, cnt = ek.compact_append(dev_b, buf, cnt, row_offset=40)
+    want = torch.full((cap, 2), -1, dtype=torch.int32)
+    want, wcnt = ek.compact_append(a, want, 0)
+    want, wcnt = ek.compact_append(b, want, wcnt, row_offset=40)
+    torch.cuda.synchronize()
+    assert torch.equal(buf.cpu(), want) and int(cnt) == int(wcnt)
+    assert ek.launches["compact"] == before + 2
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ek.compact_append(a, buf, 0)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_ring_engine_on_cuda_matches_cpu(cuda_device, depth):
+    """Chunks, accounting and retries of the ring on the card equal the
+    plain-torch ring's (small capacity: every dense step retries)."""
+    from repro_torch.core.costs import CostLedger
+    from repro_torch.data import synth
+    from repro_torch.data.cnf_fixtures import representative_cnf
+    from repro_torch.data.simulated_llm import SimulatedExtractor
+    from repro_torch.engine import get_engine
+    ds = synth.police_records(n_incidents=37, reports_per_incident=2, seed=5)
+    specs, clauses, thetas = representative_cnf(ds)
+    feats = SimulatedExtractor(ds).materialize(specs, CostLedger())
+    opts = dict(tl=32, tr=32, r_chunk=64, capacity=64, prefetch_depth=depth)
+    rows = []
+    for device in ("cuda", "cpu"):
+        eng = get_engine("sharded", device=device, **opts)
+        chunks = list(eng.evaluate_stream(feats, clauses, thetas))
+        rows.append(([(c.candidates, c.stats.bytes_to_host,
+                       c.stats.conjunct_evals) for c in chunks],
+                     eng.last_sweep_capacity))
+    assert rows[0] == rows[1]
+    assert rows[0][1] > 64
+
+
+def test_fleet_on_sharded_cuda_counts_band_steps(cuda_device):
+    """Two tenants on the ring engine on the card: every band step takes a
+    scheduler ticket, and the concurrent run equals the serial run."""
+    from repro_torch.core.join import FDJConfig
+    from repro_torch.data import synth
+    from repro_torch.serving.fleet import JoinFleet
+    runs = {}
+    for workers in (1, 2):
+        with JoinFleet(max_concurrent=workers) as fleet:
+            for name in ("a", "b"):
+                fleet.add_tenant(name, synth.police_records(
+                    n_incidents=12, reports_per_incident=2, seed=3),
+                    FDJConfig(engine="sharded",
+                              engine_opts=dict(tl=32, tr=32, r_chunk=32),
+                              seed=0, mc_trials=4000))
+            futs = [fleet.submit(t) for t in ("a", "b", "a", "b")]
+            runs[workers] = [f.result(timeout=300).pairs for f in futs]
+            summary = fleet.drain()
+        assert summary["band_steps"] > 0 and summary["failed"] == 0
+    assert runs[1] == runs[2]

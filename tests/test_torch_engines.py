@@ -1,7 +1,8 @@
 """repro_torch step-② engines vs the JAX reference engines.
 
-The port's ``cuda`` engine (on CPU tensors: the kernel's plain version) and
-its ``numpy`` engine must return the reference engines' candidate set on
+The port's ``cuda`` and ``sharded`` engines (on CPU tensors: the kernels'
+plain versions) and its ``numpy`` engine must return the reference
+engines' candidate set on
 the ragged synth cases of tests/test_engines.py, the empty scaffold and an
 all-missing feature column.  Planes come from each package's own
 extractor and must agree array for array.  Streamed chunks must be
@@ -24,7 +25,8 @@ from repro_torch.data.cnf_fixtures import representative_cnf
 from repro_torch.data.simulated_llm import SimulatedExtractor
 from repro_torch.engine import ENGINES, get_engine
 
-_OPTS = {"numpy": dict(block=64), "cuda": dict(tl=32, tr=64, device="cpu")}
+_OPTS = {"numpy": dict(block=64), "cuda": dict(tl=32, tr=64, device="cpu"),
+         "sharded": dict(tl=32, tr=32, r_chunk=64, device="cpu")}
 _J_OPTS = {"numpy": dict(block=64), "pallas": dict(tl=32, tr=64)}
 
 
@@ -110,7 +112,8 @@ def test_stream_chunks_disjoint_and_union_equals_evaluate(engine):
     ds = synth.citations(n_docs=101, seed=9)
     specs, clauses, thetas = representative_cnf(ds)
     feats = SimulatedExtractor(ds).materialize(specs, CostLedger())
-    small = {"numpy": dict(block=32), "cuda": dict(l_block=32)}[engine]
+    small = {"numpy": dict(block=32), "cuda": dict(l_block=32),
+             "sharded": dict(r_chunk=32)}[engine]
     eng = get_engine(engine, **{**_OPTS[engine], **small})
     chunks = list(eng.evaluate_stream(feats, clauses, thetas))
     assert len(chunks) > 1

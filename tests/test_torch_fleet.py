@@ -2,12 +2,15 @@
 
 Ports of tests/test_fleet.py's scheduler, plan-library and end-to-end
 fleet tests (the store-tenancy tests are in tests/test_torch_planes.py).
-The fleet runs tenants on the port's ``numpy`` and ``cuda`` engines on
-``device="cpu"``; its queries must give the reference fleet's pairs,
-dollars and plane counters (dedup hits included), and concurrent runs
-must equal serial ones byte for byte.  ``_gated_cfg`` leaves a tenant's
-config unchanged: no engine of the port takes the band scheduler yet.
+The fleet runs tenants on the port's ``numpy``, ``cuda`` and ``sharded``
+engines on ``device="cpu"``; its queries must give the reference fleet's
+pairs, dollars and plane counters (dedup hits included), and concurrent
+runs must equal serial ones byte for byte.  ``_gated_cfg`` keys the band
+scheduler under ``engine_opts["sharded"]``, as the reference does: the
+ring engine's band steps go through it, the other engines never see it.
 """
+
+import dataclasses
 
 import threading
 import time
@@ -17,12 +20,13 @@ import pytest
 from repro.core.join import FDJConfig as JCfg
 from repro.data import synth as j_synth
 from repro.serving.fleet import JoinFleet as JFleet
-from repro_torch.core.join import FDJConfig, QueryOptions
+from repro_torch.core.join import FDJConfig, QueryOptions, _get_engine
 from repro_torch.data import synth
 from repro_torch.serving.fleet import BandScheduler, JoinFleet
 from repro_torch.serving.join_service import PlanLibrary
 
-_OPTS = {"numpy": dict(block=64), "cuda": dict(tl=32, tr=64)}
+_OPTS = {"numpy": dict(block=64), "cuda": dict(tl=32, tr=64),
+         "sharded": dict(tl=32, tr=32, r_chunk=64)}
 
 
 def _ds(mod, seed=3, n=12):
@@ -240,12 +244,96 @@ def test_fleet_appends_through_the_admission_loop():
 
 @pytest.mark.parametrize("engine", ["numpy", "cuda"])
 def test_gated_cfg_leaves_port_config_unchanged(engine):
+    """The numpy and cuda engines are built from a gated config exactly as
+    from the tenant's own: the gate adds the scheduler only under the
+    sharded engine's key."""
     fleet = JoinFleet(device="cpu", max_concurrent=1)
     try:
-        for opts in (_OPTS[engine], _OPTS, {}):
+        for opts in (_OPTS[engine], {"numpy": _OPTS["numpy"],
+                                     "cuda": _OPTS["cuda"]}, {}):
             cfg = FDJConfig(engine=engine, device="cpu", engine_opts=opts)
-            assert fleet._gated_cfg(cfg) == cfg
+            gated = fleet._gated_cfg(cfg)
+            assert gated.engine_opts["sharded"] == {"scheduler":
+                                                    fleet.scheduler}
+            assert dataclasses.replace(gated, engine_opts=opts) == cfg
+            got, want = _get_engine(gated), _get_engine(cfg)
+            assert type(got) is type(want) and vars(got) == vars(want)
         svc = fleet.add_tenant("a", _ds(synth), _cfg(engine))
-        assert svc.cfg == _cfg(engine)
+        assert svc.cfg == fleet._gated_cfg(_cfg(engine))
     finally:
         fleet.close()
+
+
+def test_fleet_scopes_scheduler_to_sharded_engine():
+    fleet = JoinFleet(device="cpu", max_concurrent=1)
+    try:
+        cfg = fleet._gated_cfg(FDJConfig(engine="numpy",
+                                         engine_opts=dict(block=64)))
+        # flat opts got keyed under their engine; the scheduler rides only
+        # the sharded entry, so the numpy constructor never sees it
+        assert cfg.engine_opts["numpy"] == dict(block=64)
+        assert cfg.engine_opts["sharded"]["scheduler"] is fleet.scheduler
+        ring = _get_engine(fleet._gated_cfg(_cfg("sharded")))
+        assert ring.scheduler is fleet.scheduler
+        assert (ring.tl, ring.tr, ring.r_chunk) == (32, 32, 64)
+    finally:
+        fleet.close()
+
+
+def _sharded_fleet(workers):
+    """Two tenants on one corpus through the ring engine: 2 queries each,
+    concurrent (submitted) or serial (one worker, one at a time)."""
+    with JoinFleet(device="cpu", max_concurrent=workers) as fleet:
+        for name in ("a", "b"):
+            fleet.add_tenant(name, _ds(synth), _cfg("sharded"))
+        if workers == 1:
+            res = [fleet.query(t) for t in ("a", "b", "a", "b")]
+        else:
+            futs = [fleet.submit(t) for t in ("a", "b", "a", "b")]
+            res = [f.result(timeout=120) for f in futs]
+        summary = fleet.drain()
+    return [_row(r) for r in res], summary
+
+
+def test_fleet_on_sharded_counts_band_steps_and_concurrent_equals_serial():
+    serial, s_sum = _sharded_fleet(1)
+    concurrent, c_sum = _sharded_fleet(2)
+    # which tenant plans and extracts first is a race when concurrent: the
+    # pairs and candidates, not the per-tenant ledgers, must agree
+    assert [(r["pairs"], r["candidates"]) for r in concurrent] == \
+        [(r["pairs"], r["candidates"]) for r in serial]
+    for summary in (s_sum, c_sum):
+        assert summary["failed"] == 0 and summary["completed"] == 4
+        # padded R is 64 columns: one band step a query
+        assert summary["band_steps"] >= 4
+    # and the reference fleet's pairs and dollars (its tenants run the
+    # numpy engine: the candidate set is the same on every engine)
+    want, _ = _reference_two_tenants()
+    for got, ref in zip(serial[:2], want):
+        assert got["pairs"] == ref["pairs"]
+        assert got["breakdown"] == ref["breakdown"]
+        assert got["candidates"] == ref["candidates"]
+
+
+def test_serve_fleet_launcher_defaults_to_sharded(monkeypatch):
+    """``launch.serve_fleet`` runs the ring engine unless told otherwise,
+    as the reference's does, and passes --r-chunk / --prefetch-depth on."""
+    import sys
+    from repro_torch.launch import serve_fleet
+    seen = {}
+    monkeypatch.setattr(serve_fleet, "run_fleet",
+                        lambda *a, **kw: seen.update(args=a, kw=kw))
+    monkeypatch.setattr(sys, "argv", ["serve_fleet", "--device", "cpu",
+                                      "--r-chunk", "64",
+                                      "--prefetch-depth", "1"])
+    serve_fleet.main()
+    assert seen["args"][1] == "sharded"
+    assert seen["kw"]["engine_opts"] == {"sharded": {"r_chunk": 64}}
+    assert seen["kw"]["prefetch_depth"] == 1
+    monkeypatch.undo()
+    out = serve_fleet.run_fleet(
+        "police_records", size=0.1, n_tenants=2, queries=1, device="cpu",
+        engine_opts={"sharded": dict(tl=32, tr=32, r_chunk=32)},
+        prefetch_depth=2)
+    assert out["summary"]["band_steps"] > 0
+    assert out["summary"]["failed"] == 0
