@@ -14,7 +14,8 @@ then drives the serving path (``JoinService`` over a plane store on the
 card, the fleet, the precision path, trace export) on the same corpus,
 and then the ring engine (``engine="sharded"``: R streamed in bands through
 a prefetch ring, candidates compacted on the card by ``csrc/extract.cu``)
-on the main path's corpus, the production cell and the serving path.
+on the main path's corpus, the production cell and the serving path, and
+then the join mesh (the ring L-sharded over ranks) at world sizes 1 and 2.
 
 Phases, in order; any failure exits non-zero before the last line:
   1. the card (nvidia-smi name and power limit), the kernel builds and
@@ -87,7 +88,21 @@ Phases, in order; any failure exits non-zero before the last line:
      6's two-tenant fleet on ``sharded`` (band steps through the fleet's
      scheduler, concurrent == serial == phase 6's pairs); (e) the
      ring's traces checked by ``trace_report --check``; the compaction
-     kernel timed at the main path's band and at a production band.
+     kernel timed at the main path's band and at a production band;
+  8. the join mesh (the ring L-sharded over ranks): (a) a world of one
+     through the mesh code path — ``products --size 4`` through
+     ``launch.join --engine sharded --pods 1`` equal to phase 7's launcher
+     run, phase 7's plan through a (1, 1, 1) join mesh with 0 pairs
+     differing from phase 7's ring, and the production plane (its shape
+     from ``build_join_cell``) through the (1, 1, 1) mesh, phase 7's pairs
+     with ``bytes_to_host`` = 12 a step + 8 a pair; (b) two ranks sharing
+     the card, as (2, 1, 1) and (1, 2, 1), spawned by ``multipod_dryrun
+     --device cuda``: the production plane at ``r_chunk`` 4096 with phase
+     7's candidate count and ``bytes_to_host`` = 12 a rank a step + 8 a
+     pair, cross-pod collectives of int32 counts only, and the dry-run's
+     parity, stream, overflow and serving checks, with both kernels
+     launched on every rank (counts printed).  Walls beside the card's
+     name and power limit.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -152,6 +167,7 @@ def main():
     ctx.phase5_timing()
     ctx.phase6_serving()
     ctx.phase7_ring()
+    ctx.phase8_mesh()
     ctx.serving_launches()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -391,25 +407,29 @@ class Smoke:
             f" cases, evals grids equal, {total} mismatched bits, all {EPS_NOTE})")
         self._boundary_fixture()
 
-        # production cell: planes on the card, compared on a 2048-row strip
+        # production cell (launch.join.build_join_cell on a 1-rank mesh:
+        # the whole plane): planes on the card, compared on a 2048-row strip
+        from repro_torch.distributed.mesh import make_join_mesh
+        from repro_torch.launch.join import build_join_cell
+        cell, (a_l, a_r) = build_join_cell(make_join_mesh(1, 1, 1))
         g = torch.Generator(device=self.dev).manual_seed(0)
-        n, fv, d = 262144, 4, 128
-        emb_l = torch.randn((fv, n, d), generator=g, device=self.dev)
-        emb_r = torch.randn((fv, n, d), generator=g, device=self.dev)
+        emb_l = torch.randn(a_l.shape, generator=g, device=self.dev)
+        emb_r = torch.randn(a_r.shape, generator=g, device=self.dev)
         emb_l /= emb_l.norm(dim=-1, keepdim=True)
         emb_r /= emb_r.norm(dim=-1, keepdim=True)
+        fv, n, d = emb_l.shape
         scal_l = torch.zeros((1, n), device=self.dev)
-        scal_r = torch.zeros((1, n), device=self.dev)
+        scal_r = torch.zeros((1, emb_r.shape[1]), device=self.dev)
         self.prod = dict(args=(emb_l, emb_r, scal_l, scal_r),
-                         clauses=tuple(((VEC, i),) for i in range(3)),
-                         thetas=(0.4, 0.4, 0.4))
+                         clauses=cell.clauses, thetas=cell.thetas)
         p = self.prod
         strip = (emb_l[:, :2048], emb_r, scal_l[:, :2048], scal_r)
         n_mis, err = self.cnf_compare(strip, p["clauses"], p["thetas"],
                                       tl=256, tr=512, early_reject=True,
                                       what="production strip")
-        log(f"phase 2: production cell 262144^2, F_v=4, D=128, 3 clauses: "
-            f"strip 2048 x 262144 ok, {n_mis} mismatched bits "
+        log(f"phase 2: production cell {n}^2, F_v={fv}, D={d}, "
+            f"{len(cell.clauses)} clauses: "
+            f"strip 2048 x {n} ok, {n_mis} mismatched bits "
             f"(max |d64 - theta| {err:.3g}, all {EPS_NOTE})")
         self.prod_strip = strip
 
@@ -1401,6 +1421,7 @@ class Smoke:
         check(eng["engine"] == "sharded" and eng["overlap_s"] > 0,
               f"ring main path engine stats {eng}")
         self.ring_launches = launches
+        self.ring["main_out"] = out
         log("phase 7: products size 4 through sharded (launcher, r_chunk 512,"
             " depth 2): " + json.dumps({
                 "candidates": out["candidates"], "theta": out["theta"],
@@ -1481,6 +1502,12 @@ class Smoke:
                 check(st.bytes_to_host == 12 * steps + 8 * overflows
                       + 8 * res.candidate_count,
                       f"ring {what}: bytes_to_host {st.bytes_to_host}")
+                if depth == 2 and not stream:
+                    # phase 8 runs this plan through a join mesh
+                    self.ring["plan_run"] = dict(
+                        ds=ds, oracle=oracle, ext=ext, label=label,
+                        plan=plan, cfg=c, candidates=res.candidates,
+                        pairs=res.pairs)
                 rows[what] = {
                     "wall_s": round(wall, 4),
                     "step2_s": res.cost.wall_summary()["step2_wall"],
@@ -1590,6 +1617,7 @@ class Smoke:
               "production plane: rows < 2048 differ from the strip's pairs")
         device, parts = self.device_ms(
             lambda: eng.evaluate(planes, scaffold, thetas), n=1, by_name=True)
+        self.ring["production_pairs"] = full.candidates
         self.ring["production"] = dict(
             wall_s=wall, candidates=s.n_candidates, steps=steps,
             bytes_to_host=s.bytes_to_host, mask_bytes=n * n // 8,
@@ -1818,6 +1846,138 @@ class Smoke:
             key = "cnf_join" if entry["name"] == "cnf_join_block" \
                 else "threshold_sweep"
             entry["launches_ring"] = self.ring_launches[key]
+
+    # -- phase 8: the join mesh --------------------------------------------
+    def phase8_mesh(self):
+        """The ring L-sharded over a join mesh of ranks: (a) a world of one
+        through the mesh code path (``--pods 1``, an explicit (1, 1, 1)
+        mesh, the production plane), (b) two-rank worlds sharing the card,
+        spawned by ``multipod_dryrun --device cuda``."""
+        t0 = time.perf_counter()
+        self._mesh_world1()
+        self._mesh_world2()
+        for entry in self.kernels:
+            key = {"cnf_join_block": "cnf_join",
+                   "compact_append": "compact"}.get(entry["name"])
+            if key:
+                entry["launches_mesh"] = self.mesh_launches[key]
+        log(f"phase 8: join mesh ok ({time.perf_counter() - t0:.1f} s, "
+            f"{self.smi})")
+
+    def _mesh_world1(self):
+        """World 1: ``products --size 4`` through ``launch.join --engine
+        sharded --pods 1`` (the host mesh) against phase 7's launcher run;
+        phase 7's plan executed with a (1, 1, 1) join mesh, candidates and
+        pairs equal to phase 7's ring at the same depth; the production
+        plane through the (1, 1, 1) mesh from phase 6's store."""
+        from repro_torch.core.costs import CostLedger
+        from repro_torch.core.join import execute_join
+        from repro_torch.distributed.mesh import make_join_mesh
+        from repro_torch.engine import get_engine
+        from repro_torch.launch.join import run_join
+        torch = self.torch
+        self.reset_launches()
+        t0 = time.perf_counter()
+        out = run_join("products", size=4, engine="sharded", pods=1,
+                       r_chunk=512, prefetch_depth=2)
+        wall = time.perf_counter() - t0
+        launches = self.read_launches()
+        main = self.ring["main_out"]
+        for key in ("candidates", "theta", "clauses", "recall", "precision"):
+            check(out[key] == main[key], f"--pods 1 join vs phase 7's: {key} "
+                  f"{out[key]} vs {main[key]}")
+        check(launches["cnf_join"] == launches["compact"] > 0,
+              f"--pods 1 join launches {launches}")
+        run = self.ring.pop("plan_run")
+        mesh = make_join_mesh(1, 1, 1)
+        cfg = run["cfg"].with_overrides(engine_opts={"sharded": {
+            "r_chunk": 512, "mesh": mesh}})
+        res = execute_join(run["ds"], run["oracle"], run["ext"], cfg,
+                           run["plan"], ledger=CostLedger(),
+                           label=run["label"], keep_candidates=True)
+        differing = len(set(res.candidates) ^ set(run["candidates"]))
+        check(differing == 0 and res.pairs == run["pairs"],
+              f"(1, 1, 1) mesh: {differing} candidates differ from phase "
+              f"7's ring")
+        st = self.prod_store
+        n = self.prod["args"][0].shape[1]
+        steps = -(-n // 4096)
+        eng = get_engine("sharded", mesh=mesh, r_chunk=4096)
+        self.reset_launches()
+        t1 = time.perf_counter()
+        full = eng.evaluate(st["planes"], st["scaffold"], self.prod["thetas"])
+        torch.cuda.synchronize()
+        prod_wall = time.perf_counter() - t1
+        self.mesh_launches = self.read_launches()
+        s = full.stats
+        check(full.candidates == self.ring["production_pairs"],
+              "(1, 1, 1) mesh: production plane pairs differ from phase 7's")
+        check(s.bytes_to_host == 12 * steps + 8 * s.n_candidates,
+              f"(1, 1, 1) production plane: bytes_to_host {s.bytes_to_host}")
+        check(self.mesh_launches["cnf_join"] == self.mesh_launches["compact"]
+              == steps, f"(1, 1, 1) production launches {self.mesh_launches}")
+        self.mesh = {"world1": {
+            "pods1_join": {"candidates": out["candidates"],
+                           "wall_s": round(wall, 3), "walls": out["walls"],
+                           "launches": launches,
+                           "bytes_to_host": out["engine"]["bytes_to_host"]},
+            "plan_111": {"candidates": res.candidate_count,
+                         "differing": differing,
+                         "step2_s": res.cost.wall_summary()["step2_wall"]},
+            "production_111": {
+                "n": n, "steps": steps, "candidates": s.n_candidates,
+                "wall_s": prod_wall, "bytes_to_host": s.bytes_to_host,
+                "dispatch_wall_s": s.dispatch_wall_s,
+                "pull_wall_s": s.pull_wall_s, "overlap_s": s.overlap_s,
+                "launches": self.mesh_launches,
+                "collectives": mesh.ledger.summary()["by_group"]}}}
+        log(f"phase 8: world 1 ({self.smi}): " +
+            json.dumps(self.mesh["world1"]))
+
+    def _mesh_world2(self):
+        """Two ranks on the one card, as (2, 1, 1) and (1, 2, 1):
+        ``multipod_dryrun --device cuda`` with the production cell at
+        ``r_chunk`` 4096; the same candidates as phase 7's plane, 12 B a
+        rank a step + 8 B a pair to the host, counts-only cross-pod calls,
+        and the dry-run's parity, stream, overflow and serving checks with
+        both kernels launched on every rank."""
+        from repro_torch.launch.dryrun_client import run_dryrun
+        n = self.prod["args"][0].shape[1]
+        steps = -(-n // 4096)
+        want = self.ring["production"]["candidates"]
+        self.mesh["world2"] = {}
+        for shape in ("2,1,1", "1,2,1"):
+            t0 = time.perf_counter()
+            rep = run_dryrun(shape, "--device", "cuda", "--cell", str(n),
+                             "--cell-r-chunk", "4096", timeout=300)
+            wall = time.perf_counter() - t0
+            cell, coll = rep["cell"], rep["collectives"]
+            check(cell["candidates"] == want and cell["steps"] == steps,
+                  f"{shape}: cell {cell['candidates']} candidates in "
+                  f"{cell['steps']} steps, want {want} in {steps}")
+            check(cell["bytes_to_host"] == 12 * 2 * steps + 8 * want,
+                  f"{shape}: bytes_to_host {cell['bytes_to_host']}")
+            pods = int(shape.split(",")[0])
+            check(coll["findings"] == [] and coll["plane_mask_bytes"] == 0
+                  and (coll["cross_pod_calls"] >= 1) == (pods > 1)
+                  and coll["max_cross_call_bytes"]
+                  <= coll["cross_call_budget_bytes"],
+                  f"{shape}: collectives {coll}")
+            for r in rep["ranks"]:
+                check(r["launches"]["cnf_join"] > 0 and
+                      r["launches"]["compact"] > 0,
+                      f"{shape}: rank {r['rank']} launches {r['launches']}")
+            self.mesh["world2"][shape] = {
+                "dryrun_wall_s": round(wall, 2), "cell": cell,
+                "cell_wall_s_by_rank": [r["cell_wall_s"] for r in rep["ranks"]],
+                "launches_by_rank": [r["launches"] for r in rep["ranks"]],
+                "collectives": coll, "parity": {
+                    k: rep["parity"][k] for k in ("candidates",
+                                                  "bytes_to_host", "steps",
+                                                  "overlap_s")},
+                "overflow": rep["overflow"], "serving": rep["serving"]}
+            log(f"phase 8: world 2 {shape} on one card ({self.smi}): " +
+                json.dumps(self.mesh["world2"][shape]))
 
 
 if __name__ == "__main__":

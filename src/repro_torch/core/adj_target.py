@@ -129,7 +129,12 @@ def failure_curve(k_plus: int, r: int, n_plus: int, target: float,
     tail = counts[::-1].cumsum()[::-1] / n_trials
     if cache:
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        np.save(path, tail)
+        # written whole, then renamed: the ranks of a world compute the
+        # same curve at once, and one must never load another's half
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.save(f, tail)
+        os.replace(tmp, path)
     return tail
 
 

@@ -73,6 +73,11 @@ class FDJConfig:
     #   cfg.engine, or keyed per engine name ({"cuda": {...}, ...}) so a
     #   per-query engine override picks its own opts
     stream_refinement: bool = False  # pipeline step ⑨ over step ②'s stream
+    pods: int = 1                  # sharded engine: pod-axis width of the
+    #   (pod, data, model) join mesh over the torch.distributed world
+    #   (distributed.mesh.make_join_mesh) when > 1 and no explicit mesh is
+    #   in engine_opts; execution-only, never part of a serving plan key
+    #   (same candidate set on any mesh)
     refine_batch_pairs: int = 512  # oracle batch size inside the pump
     pump_queue_chunks: int = 4     # bounded chunk queue (engine backpressure)
     prefetch_depth: Optional[int] = None  # sharded engine: band steps in
@@ -522,8 +527,12 @@ def _get_engine(cfg: FDJConfig):
         opts.setdefault("block", cfg.block)
     if cfg.engine in ("cuda", "sharded"):
         opts.setdefault("device", cfg.device)
-    if cfg.engine == "sharded" and cfg.prefetch_depth is not None:
-        opts.setdefault("prefetch_depth", cfg.prefetch_depth)
+    if cfg.engine == "sharded":
+        if cfg.prefetch_depth is not None:
+            opts.setdefault("prefetch_depth", cfg.prefetch_depth)
+        if cfg.pods > 1 and "mesh" not in opts:
+            from repro_torch.distributed import mesh as mesh_mod
+            opts["mesh"] = mesh_mod.make_join_mesh(n_pods=cfg.pods)
     return get_engine(cfg.engine, **opts)
 
 

@@ -14,9 +14,9 @@ the returned count keeps growing past capacity, so the caller compares
 count vs capacity and retries bigger.  Host traffic becomes
 O(candidates): one scalar count plus 8 bytes per surviving pair.
 
-The multi-device prefix sum of the reference (``hierarchical_offsets``)
-is not here: on one device a step's global base is the 1-rank exclusive
-prefix sum, 0, which ``engine.sharded`` computes and pulls all the same.
+``hierarchical_offsets`` gives a rank of the join mesh the global base of
+its candidates, from int32 counts on the host: within the pod first, then
+across pods.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.kernels.extract.kernel import compact_append
 
-__all__ = ["compact_append", "extract_pairs", "grow_caps"]
+__all__ = ["compact_append", "extract_pairs", "grow_caps",
+           "hierarchical_offsets"]
 
 _CAP_QUANTUM = 1024                    # capacities round up to this
 
@@ -47,6 +48,38 @@ def grow_caps(caps, counts):
     counts = np.asarray(counts, np.int64)
     need = -(-counts // _CAP_QUANTUM) * _CAP_QUANTUM
     return np.where(counts > caps, np.maximum(4 * caps, need), caps)
+
+
+def hierarchical_offsets(count: int, mesh):
+    """Global exclusive offset of this rank's candidates, prefix-summed
+    hierarchically: within the pod first, then across pods.
+
+    count: this rank's candidate count (host int); mesh: the
+    ``distributed.mesh.JoinMesh`` the rank belongs to.
+
+    Two collectives, both over *counts only* (``distributed.collectives``):
+
+      1. an all-gather of ``count`` over the pod's ranks (``inner``), one
+         int32 a rank; the exclusive cumsum at the rank's inner index is
+         its base inside the pod;
+      2. an all-gather of the pod total over the ``cross`` group, one
+         int32 a pod — the **only cross-pod collective of the engine**:
+         links between pods carry candidate counts, never planes or masks.
+         Skipped on a mesh without a pod axis.
+
+    Returns (global base int, pod_counts int32 (ranks of the pod,)).
+    """
+    from repro_torch.distributed import collectives
+    pod_counts = collectives.all_gather(
+        np.array([count], np.int32), mesh, "inner").reshape(-1)
+    excl = np.cumsum(pod_counts) - pod_counts
+    base = int(excl[mesh.inner_index])
+    if "pod" not in mesh.axis_names:
+        return base, pod_counts
+    totals = collectives.all_gather(
+        np.array([pod_counts.sum()], np.int32), mesh, "cross").reshape(-1)
+    pod_base = int((np.cumsum(totals) - totals)[mesh.pod])
+    return pod_base + base, pod_counts
 
 
 def extract_pairs(packed, *, capacity, row_offset=0, col_offset=0):

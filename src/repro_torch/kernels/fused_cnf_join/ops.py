@@ -6,7 +6,8 @@ multiples and embedding dims to a lane multiple (128).
 ``pack_features_device`` writes the same layout on the device from the
 resident per-feature planes of a ``serving.planes.DevicePlaneSet``.
 ``stage_planes`` puts the kernel's inputs on the evaluation device: a
-host pack and upload, or the device-side assembly with no upload.
+host pack and upload, or the device-side assembly with no upload; with a
+join mesh, each rank keeps its L shard and all of R.
 ``evaluate_corpus_stream`` is the engine behind ``engine="cuda"``: it runs
 the kernel one L-row strip at a time and yields each strip's candidate
 pairs (the plain-torch version when the device is the CPU).
@@ -161,8 +162,11 @@ def pack_features_device(planes, clauses: Sequence, *, tl: int, tr: int,
 
 @dataclasses.dataclass(eq=False)
 class StagedPlanes:
-    """Kernel inputs on the evaluation device plus the host-to-device
-    bytes it took to put them there."""
+    """Kernel inputs on the evaluation device plus the transfer accounting
+    for how they got there (``bytes_h2d``: host to device;
+    ``bytes_reshard``: laying resident planes out on a mesh — 0 on warm
+    queries).  With a mesh, ``emb_l`` / ``scal_l`` hold this rank's L
+    shard; ``n_l`` / ``n_r`` are the corpus's."""
     emb_l: torch.Tensor
     emb_r: torch.Tensor
     scal_l: torch.Tensor
@@ -171,14 +175,41 @@ class StagedPlanes:
     n_l: int
     n_r: int
     bytes_h2d: int = 0
+    bytes_reshard: int = 0
 
     @property
     def arrays(self) -> tuple:
         return (self.emb_l, self.emb_r, self.scal_l, self.scal_r)
 
 
+def shard_rows(mesh, l_axes: tuple, rows: int) -> tuple:
+    """(first row, rows) of this rank's L shard when ``rows`` (a multiple
+    of the shard count) are split over the mesh axes ``l_axes``."""
+    shard, n = 0, 1
+    for a in l_axes:
+        shard = shard * mesh.shape[a] + mesh.coords[a]
+        n *= mesh.shape[a]
+    per = rows // n
+    return shard * per, per
+
+
+def _place_on_mesh(arrays, mesh, l_axes: tuple):
+    """Lay the assembled planes out on the mesh: this rank keeps its L
+    shard (a copy of its rows) and all of R.  Counts the reference's
+    reshard bytes: an array laid out anew counts its global ``nbytes``
+    once; on a 1-rank world every array is already laid out (0)."""
+    if mesh.size == 1:
+        return tuple(arrays), 0
+    emb_l, emb_r, scal_l, scal_r = arrays
+    row0, rows = shard_rows(mesh, l_axes, emb_l.shape[1])
+    moved = sum(a.numel() * a.element_size() for a in arrays)
+    return (emb_l[:, row0:row0 + rows].clone(), emb_r,
+            scal_l[:, row0:row0 + rows].clone(), scal_r), moved
+
+
 def stage_planes(feats: Sequence, clauses: Sequence, *, tl: int, tr: int,
-                 lane: int = 128, device="cuda") -> StagedPlanes:
+                 lane: int = 128, device="cuda", mesh=None,
+                 l_axes: tuple = ("data",)) -> StagedPlanes:
     """Stage feature planes for the kernel on ``device``, preferring
     device residency.
 
@@ -188,8 +219,17 @@ def stage_planes(feats: Sequence, clauses: Sequence, *, tl: int, tr: int,
     (serving.planes.DevicePlaneSet) is assembled on its own device from
     the resident tensors (``bytes_h2d`` = 0).  Resident planes on another
     device than ``device`` raise: they are never moved silently.
+
+    With ``mesh`` (a ``distributed.mesh.JoinMesh``; ``tl`` a multiple of
+    the L shard count) the rank keeps only its L shard over ``l_axes``,
+    and all of R.  The host path uploads the shard alone (``bytes_h2d``
+    stays the packed bytes, the reference's count); the resident path pays
+    a one-time reshard (``bytes_reshard``, see ``_place_on_mesh``) whose
+    result is memoized on the plane set's ``pack_cache`` under
+    ``("mesh", used, shapes, mesh, l_axes)``, so warm queries report 0.
     """
     dev = resolve_device(device)
+    l_axes = tuple(l_axes)
     if hasattr(feats, "device_l") and hasattr(feats, "device_r"):
         have = feats.device
         if have.type != dev.type or dev.index not in (None, have.index):
@@ -198,11 +238,29 @@ def stage_planes(feats: Sequence, clauses: Sequence, *, tl: int, tr: int,
                 f"evaluation device is {dev}")
         emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r = \
             pack_features_device(feats, clauses, tl=tl, tr=tr, lane=lane)
-        return StagedPlanes(emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r)
+        staged = StagedPlanes(emb_l, emb_r, scal_l, scal_r, kclauses, n_l,
+                              n_r)
+        if mesh is None:
+            return staged
+        cache = getattr(feats, "pack_cache", None)
+        used = tuple(sorted({f for c in clauses for f in c}))
+        mkey = ("mesh", used, tuple(emb_l.shape), tuple(emb_r.shape), mesh,
+                l_axes)
+        if cache is not None and mkey in cache:
+            return dataclasses.replace(staged, **dict(zip(
+                ("emb_l", "emb_r", "scal_l", "scal_r"), cache[mkey])))
+        arrays, moved = _place_on_mesh(staged.arrays, mesh, l_axes)
+        if cache is not None:
+            cache[mkey] = arrays
+        return StagedPlanes(*arrays, kclauses, n_l, n_r, bytes_reshard=moved)
     emb_l, emb_r, scal_l, scal_r, kclauses, n_l, n_r = pack_features(
         feats, clauses, tl=tl, tr=tr, lane=lane)
     h2d = emb_l.nbytes + emb_r.nbytes + scal_l.nbytes + scal_r.nbytes
-    arrays = tuple(torch.from_numpy(a).to(dev)
+    if mesh is not None:
+        row0, rows = shard_rows(mesh, l_axes, emb_l.shape[1])
+        emb_l = emb_l[:, row0:row0 + rows]
+        scal_l = scal_l[:, row0:row0 + rows]
+    arrays = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                    for a in (emb_l, emb_r, scal_l, scal_r))
     return StagedPlanes(*arrays, kclauses, n_l, n_r, bytes_h2d=h2d)
 

@@ -2,19 +2,30 @@
 
   PYTHONPATH=src python -m repro_torch.launch.join --dataset products \
       --size 4 --engine cuda|sharded [--stream] [--device cpu] \
-      [--prefetch-depth 2 --r-chunk 512] [--precision-target 0.9] \
-      [--trace-out t.json]
+      [--prefetch-depth 2 --r-chunk 512] [--pods P] \
+      [--precision-target 0.9] [--trace-out t.json]
 
 Prints one JSON report: recall/precision, the cost breakdown relative to
 the naive all-pairs join, step-② engine stats and the per-phase walls
 (``plan_s`` for steps ①–⑥, ``execute_s`` for steps ⑦–⑨).  ``--trace-out``
 writes the run's trace; check it with
 ``python -m repro_torch.launch.trace_report t.json --check``.
+
+Under a ``torchrun``-style environment (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) every rank joins the world over
+``gloo`` and runs the same join; the sharded engine shards L over the
+ranks (``--pods`` of them in the pod axis) and rank 0 prints the report.
+Without that environment the world is this process.
+
+Also exposes the *production join cell* (``build_join_cell``): the fused
+CNF evaluation over the 262144 x 262144 plane, L rows sharded over
+(pod, data), R over model.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Optional
@@ -31,7 +42,7 @@ from repro_torch.obs import Tracer, current_tracer, use_tracer, write_trace
 def run_join(dataset: str = "police_records", target: float = 0.9,
              delta: float = 0.1, engine: str = "cuda", size: float = 1.0,
              seed: int = 0, stream: bool = False, device: str = "cuda", *,
-             precision_target: float = 1.0,
+             precision_target: float = 1.0, pods: int = 1,
              prefetch_depth: Optional[int] = None,
              r_chunk: Optional[int] = None,
              trace_out: Optional[str] = None) -> dict:
@@ -40,7 +51,7 @@ def run_join(dataset: str = "police_records", target: float = 0.9,
     oracle = ds.make_oracle()
     cfg = FDJConfig(recall_target=target, delta=delta, engine=engine,
                     precision_target=precision_target, device=device,
-                    seed=seed, stream_refinement=stream,
+                    seed=seed, stream_refinement=stream, pods=pods,
                     prefetch_depth=prefetch_depth,
                     engine_opts=engine_opts_from(r_chunk))
     # one extractor and one label cache across both halves, as fdj_join
@@ -87,17 +98,69 @@ def run_join(dataset: str = "police_records", target: float = 0.9,
     }
 
 
+# ---------------------------------------------------------------------------
+# the production join cell
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class JoinCellStep:
+    """One CNF-join step of the production cell: ``step(emb_l, emb_r)`` is
+    the packed int32 mask of the cell's clauses at its thresholds (the
+    kernel on CUDA tensors, its plain version on CPU tensors), at the
+    kernel's default tiles."""
+    clauses: tuple
+    thetas: tuple
+
+    def __call__(self, emb_l, emb_r, **kw):
+        import torch
+        from repro_torch.kernels.fused_cnf_join.kernel import cnf_join_block
+        scal_l = torch.zeros((1, emb_l.shape[1]), device=emb_l.device)
+        scal_r = torch.zeros((1, emb_r.shape[1]), device=emb_r.device)
+        return cnf_join_block(emb_l, emb_r, scal_l, scal_r, self.clauses,
+                              self.thetas, **kw)
+
+
+def build_join_cell(mesh, *, n_l: int = 262144, n_r: int = 262144,
+                    f_vec: int = 4, d: int = 128, n_clauses: int = 3):
+    """The production cell — 3 one-member embed clauses at theta 0.4 over
+    an ``n_l`` x ``n_r`` plane of ``f_vec`` embeddings of width ``d`` —
+    as (step, (a_l, a_r)): the step callable and this rank's inputs as
+    ``device="meta"`` tensors, L rows sharded over the mesh's (pod, data)
+    and R rows over its model axis."""
+    import torch
+    from repro_torch.distributed.mesh import l_shard_axes
+    from repro_torch.kernels.fused_cnf_join.kernel import VEC
+    l_ways = 1
+    for a in l_shard_axes(mesh):
+        l_ways *= mesh.shape[a]
+    r_ways = mesh.shape.get("model", 1)
+    step = JoinCellStep(tuple(((VEC, i),) for i in range(n_clauses)),
+                        tuple(0.4 for _ in range(n_clauses)))
+    a_l = torch.empty((f_vec, n_l // l_ways, d), device="meta")
+    a_r = torch.empty((f_vec, n_r // r_ways, d), device="meta")
+    return step, (a_l, a_r)
+
+
 def main():
+    from repro_torch.distributed.mesh import init_from_env, world_rank
     ap = add_common_flags(argparse.ArgumentParser())
     ap.add_argument("--precision-target", type=float, default=1.0)
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pod-axis width of the sharded engine's (pod, "
+                         "data, model) join mesh over the torch.distributed "
+                         "world (FDJConfig.pods; needs that many ranks — "
+                         "see launch/multipod_dryrun)")
     args = ap.parse_args()
+    init_from_env()
     out = run_join(args.dataset, args.target, args.delta, args.engine,
                    args.size, args.seed, stream=args.stream,
                    device=args.device,
-                   precision_target=args.precision_target,
+                   precision_target=args.precision_target, pods=args.pods,
                    prefetch_depth=args.prefetch_depth, r_chunk=args.r_chunk,
-                   trace_out=args.trace_out)
-    print(json.dumps(out, indent=1))
+                   # one trace file: the coordinating rank's
+                   trace_out=args.trace_out if world_rank() == 0 else None)
+    if world_rank() == 0:
+        print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

@@ -139,11 +139,25 @@ class JoinFleet:
     """
 
     def __init__(self, *, byte_budget: Optional[int] = None, device="cuda",
-                 store: Optional[FeaturePlaneStore] = None,
+                 mesh=None, store: Optional[FeaturePlaneStore] = None,
                  max_concurrent: int = 2):
+        """mesh: the store's execution mesh (``FeaturePlaneStore(mesh=)``).
+        A fleet serves a world of one rank only: concurrent queries would
+        interleave band steps, and so collectives, in a different order on
+        different ranks, so a mesh (or a world, when no mesh is given) of
+        more than one rank raises ``ValueError``."""
         if max_concurrent < 1:
             raise ValueError(f"max_concurrent={max_concurrent} must be >= 1")
-        self.store = store or FeaturePlaneStore(byte_budget, device=device)
+        from repro_torch.distributed.mesh import world_size
+        meshes = [m for m in (mesh, getattr(store, "mesh", None)) if m]
+        ranks = max([world_size()] + [m.size for m in meshes])
+        if ranks > 1:
+            raise ValueError(
+                f"JoinFleet over a world of {ranks} ranks: the fleet "
+                f"serves one rank (concurrent queries would take their "
+                f"collectives in a different order on each rank)")
+        self.store = store or FeaturePlaneStore(byte_budget, device=device,
+                                                mesh=mesh)
         self.scheduler = BandScheduler()
         self.plan_library = PlanLibrary()
         self.metrics = MetricsRegistry()

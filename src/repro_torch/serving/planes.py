@@ -133,15 +133,20 @@ class DevicePlaneSet(Sequence):
     repeated warm queries skip even the on-device reshuffle.
 
     ``device`` (the store's) is where the tensors live and where
-    ``pack_features_device`` assembles.
+    ``pack_features_device`` assembles.  ``mesh`` (the store's) is the
+    sharded engine's default mesh for queries over this plane set: the
+    engine lays the assembled planes out over the mesh's L axes once (a
+    reshard memoized in ``pack_cache``), so warm sharded queries report 0
+    reshard bytes.
     """
 
     def __init__(self, feats: list, dev_l: list, dev_r: list, *,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.feats = list(feats)
         self._dev_l = list(dev_l)
         self._dev_r = list(dev_r)
         self.device = device
+        self.mesh = mesh
         self.pack_cache: dict = {}
 
     def __len__(self) -> int:
@@ -165,21 +170,26 @@ class DevicePlaneSet(Sequence):
                              scale=f.scale) for f in self.feats]
         return DevicePlaneSet(feats, self._dev_l,
                               [d[start:] for d in self._dev_r],
-                              device=self.device)
+                              device=self.device, mesh=self.mesh)
 
 
 class FeaturePlaneStore:
     """Byte-budget LRU cache of device-resident featurization planes.
 
     ``device`` holds every pinned plane ("cuda" unless the caller asks
-    for "cpu"; CUDA without a GPU raises).
+    for "cpu"; CUDA without a GPU raises).  ``mesh`` (optional) attaches
+    an execution mesh — e.g. the (pod, data, model) join mesh of
+    ``distributed.mesh.make_join_mesh`` — to every served
+    ``DevicePlaneSet``: the sharded engine takes it as its default mesh
+    and memoizes the mesh layout on the set.
     """
 
     _PROVIDED_CACHE_MAX = 4
 
     def __init__(self, byte_budget: Optional[int] = None, *,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.byte_budget = byte_budget
+        self.mesh = mesh
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -462,7 +472,8 @@ class FeaturePlaneStore:
                 dev_r.append(er.device)
             feats.append(FeatureData(spec, fd.kind, el.host, er.host,
                                      scale=fd.scale))
-        planes = DevicePlaneSet(feats, dev_l, dev_r, device=self.device)
+        planes = DevicePlaneSet(feats, dev_l, dev_r, device=self.device,
+                                mesh=self.mesh)
         # memoize only if the whole working set survived the build: a
         # byte_budget smaller than one query can evict this query's own
         # entries mid-build, and a memo would then serve evicted arrays

@@ -158,8 +158,11 @@ def test_query_options_resolve():
                        overrides={"seed": 4}).resolve(base)
     assert (cfg.engine, cfg.stream_refinement, cfg.seed, cfg.device) == \
         ("numpy", True, 4, "cpu")
+    # FDJConfig.pods is a field of the port since the join mesh: it
+    # resolves; a name that is no field still raises
+    assert QueryOptions(overrides={"pods": 2}).resolve(base).pods == 2
     with pytest.raises(TypeError, match="unknown FDJConfig"):
-        QueryOptions(overrides={"pods": 2}).resolve(base)
+        QueryOptions(overrides={"n_pods": 2}).resolve(base)
 
 
 def test_cuda_without_gpu_raises():

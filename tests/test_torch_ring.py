@@ -243,9 +243,10 @@ def _banded_density_fixture():
 
 
 @pytest.mark.parametrize("ring_opts", [
-    dict(double_buffer=True), dict(double_buffer=False),
-    dict(prefetch_depth=1), dict(prefetch_depth=2), dict(prefetch_depth=4),
-], ids=["db", "serial", "depth1", "depth2", "depth4"])
+    dict(), dict(prefetch_depth=1),
+    dict(prefetch_depth=1), dict(prefetch_depth=2), dict(prefetch_depth=3),
+    dict(prefetch_depth=4),
+], ids=["db", "serial", "depth1", "depth2", "depth3", "depth4"])
 def test_sharded_retry_mid_pipeline_drops_and_duplicates_nothing(ring_opts):
     feats, want = _banded_density_fixture()
     eng = _ring(tl=32, tr=32, r_chunk=32, capacity=1, **ring_opts)
@@ -280,8 +281,8 @@ def test_sharded_overlap_accounting_pipelined_vs_serial():
     during host pulls, exactly 0 when forced serial."""
     feats, _, clauses, thetas = _materialized("police_ragged")
     db = _ring(**_OPTS).evaluate(feats, clauses, thetas)
-    serial = _ring(double_buffer=False, **_OPTS).evaluate(feats, clauses,
-                                                          thetas)
+    serial = _ring(prefetch_depth=1, **_OPTS).evaluate(feats, clauses,
+                                                       thetas)
     depth1 = _ring(prefetch_depth=1, **_OPTS).evaluate(feats, clauses, thetas)
     deep = _ring(prefetch_depth=4, **_OPTS).evaluate(feats, clauses, thetas)
     assert db.candidates == serial.candidates == depth1.candidates \
@@ -306,10 +307,12 @@ def test_sharded_plain_cnf_refused_on_cuda(device):
 
 def test_sharded_prefetch_depth_resolution_and_validation():
     assert _ring().effective_prefetch_depth == 2
-    assert _ring(double_buffer=False).effective_prefetch_depth == 1
-    assert _ring(double_buffer=False,
-                 prefetch_depth=4).effective_prefetch_depth == 4
+    assert _ring(prefetch_depth=4).effective_prefetch_depth == 4
     assert _ring(prefetch_depth=1).effective_prefetch_depth == 1
+    # one spelling of the depth: the reference's legacy double_buffer is
+    # not taken
+    with pytest.raises(TypeError, match="double_buffer"):
+        _ring(double_buffer=False)
     with pytest.raises(ValueError, match="prefetch_depth"):
         _ring(prefetch_depth=0)
 
