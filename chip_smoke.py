@@ -14,8 +14,10 @@ then drives the serving path (``JoinService`` over a plane store on the
 card, the fleet, the precision path, trace export) on the same corpus,
 and then the ring engine (``engine="sharded"``: R streamed in bands through
 a prefetch ring, candidates compacted on the card by ``csrc/extract.cu``)
-on the main path's corpus, the production cell and the serving path, and
-then the join mesh (the ring L-sharded over ranks) at world sizes 1 and 2.
+on the main path's corpus, the production cell and the serving path, then
+the join mesh (the ring L-sharded over ranks) at world sizes 1 and 2, and
+then the model zoo's serving path (dense GQA transformers through
+``ServeEngine``, phi4-mini-3.8b at full width through ``launch.serve``).
 
 Phases, in order; any failure exits non-zero before the last line:
   1. the card (nvidia-smi name and power limit), the kernel builds and
@@ -102,7 +104,22 @@ Phases, in order; any failure exits non-zero before the last line:
      pair, cross-pod collectives of int32 counts only, and the dry-run's
      parity, stream, overflow and serving checks, with both kernels
      launched on every rank (counts printed).  Walls beside the card's
-     name and power limit.
+     name and power limit;
+  9. the model zoo's serving path, which runs none of the three kernels
+     (their counts, set to 0 before it, must stay 0): (a) the five dense
+     smoke configs in float32, weights drawn on the CPU and moved to the
+     card, a wave of three ragged prompts through ``ServeEngine`` on both
+     devices: equal greedy tokens, prefill logits within 1e-4 of max
+     |logit| (3e-2 where a bf16 KV-cache element rounded the other way);
+     (b) ``launch.serve --arch phi4-mini-3.8b --full --requests 16
+     --max-new 12 --batch-slots 8 --device cuda``: 192 tokens, wall and
+     tok/s; (c) the same model in process: prefill ms per wave and decode
+     ms per step by CUDA events, the decode step's device time and bytes
+     bound, peak memory; (d) prefill 32 tokens and decode the 33rd against
+     a full forward, within 0.15 of max |logit|; (e) a padded wave of
+     three against solo runs at full width, in bf16 and in f32: the share
+     of equal greedy tokens, the prefill logits' difference and the solo
+     top-2 gap (printed, not required).
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -111,7 +128,8 @@ another order); every other difference fails.  Sweep counts must be equal.
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` from the main path -- the compaction's from the ring's main
 path, where kernels A and B give theirs as ``launches_ring`` -- and
-``launches_serving`` per serving path), and as its last line
+``launches_serving`` per serving path, ``launches_zoo`` 0), and as its
+last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -134,6 +152,11 @@ EPS_NOTE = "pairs within D*2^-24 of a threshold"
 # 2800 x 2800, the one-shot main path's corpus; a quarter of R is held out
 # for the appends
 SERVE_SIZE = 8
+# phase 9: the dense ("attn",) configs of the model zoo, and the one served
+# at full width (the launcher's default --arch)
+ZOO_DENSE = ("phi4-mini-3.8b", "mistral-nemo-12b", "minitron-8b",
+             "starcoder2-3b", "musicgen-medium")
+ZOO_ARCH = "phi4-mini-3.8b"
 
 
 def fail(msg):
@@ -168,6 +191,7 @@ def main():
     ctx.phase6_serving()
     ctx.phase7_ring()
     ctx.phase8_mesh()
+    ctx.phase9_zoo()
     ctx.serving_launches()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -1978,6 +2002,252 @@ class Smoke:
                 "overflow": rep["overflow"], "serving": rep["serving"]}
             log(f"phase 8: world 2 {shape} on one card ({self.smi}): " +
                 json.dumps(self.mesh["world2"][shape]))
+
+    # -- phase 9: the model zoo's serving path -------------------------------
+    def phase9_zoo(self):
+        """The dense GQA transformers through ``ServeEngine`` on the card:
+        (a) the card against the CPU for the five dense smoke configs; (b)
+        phi4-mini-3.8b at full width through ``launch.serve``, the user's
+        entry point; (c) the same model timed in process (prefill, decode
+        step, peak memory, bytes bound); (d) decode against a full forward
+        at full width; (e) a padded wave against solo runs.  The path runs
+        none of the three hand-written kernels: counts set to 0 before it
+        and read after must stay 0."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.reset_launches()
+        self.zoo = {"card_vs_cpu": self._zoo_card_vs_cpu()}
+        self.zoo["launcher"] = self._zoo_launcher()
+        self._zoo_full_width()
+        launches = self.read_launches()
+        check(not any(launches.values()),
+              f"phase 9 launched a join kernel: {launches}")
+        for entry in self.kernels:
+            entry["launches_zoo"] = 0
+        log("phase 9: the model zoo's serving path launches none of the "
+            f"three kernels (counts from its run: {json.dumps(launches)}); "
+            "its attention, norms and FFNs are plain PyTorch, as the "
+            "reference's are plain jnp")
+        torch.cuda.empty_cache()
+        log(f"phase 9: model zoo ok ({time.perf_counter() - t0:.1f} s, "
+            f"{self.smi})")
+
+    @staticmethod
+    def _rel(got, want):
+        want = want.float().cpu()
+        return float((got.float().cpu() - want).abs().max()
+                     / (want.abs().max() + 1e-9))
+
+    def _zoo_card_vs_cpu(self):
+        """(a) For each dense smoke config in float32: one set of weights
+        drawn on the CPU and moved to the card; a wave of three ragged
+        prompts (3, 7, 11; 6 new tokens) through ``ServeEngine`` on each
+        device must give equal greedy tokens, and the wave's prefill logits
+        must agree to 1e-4 of max |logit| -- or to the bf16 tolerance 3e-2
+        where an element of the bf16 KV cache rounded the other way on the
+        two devices (two f32 GEMMs summing in another order)."""
+        import copy
+        import dataclasses
+        np, torch = self.np, self.torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.models import steps, transformer
+        from repro_torch.serving.engine import Request, ServeEngine, pad_wave
+        rows = {}
+        for arch in ZOO_DENSE:
+            cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+            cpu = transformer.init_params(
+                cfg, torch.Generator().manual_seed(0), "cpu")
+            models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to(self.dev)}
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                       for n in (3, 7, 11)]
+            toks, pre = {}, {}
+            wave = [torch.as_tensor(a) for a in pad_wave(prompts, 3)]
+            for dev, model in models.items():
+                eng = ServeEngine(cfg, model, batch_slots=3, capacity=32)
+                reqs = eng.run([Request(p, max_new_tokens=6) for p in prompts])
+                toks[dev] = [r.out_tokens for r in reqs]
+                pre[dev] = steps.make_prefill_step(cfg, 32)(
+                    model, *[a.to(model.embed["embedding"].device)
+                             for a in wave])
+            check(toks["cuda"] == toks["cpu"],
+                  f"{arch}: card tokens {toks['cuda']} != cpu {toks['cpu']}")
+            flips = sum(int((a[n].cpu() != b[n]).sum())
+                        for a, b in zip(pre["cuda"][0], pre["cpu"][0])
+                        for n in ("k", "v"))
+            err = self._rel(pre["cuda"][1], pre["cpu"][1])
+            tol = 1e-4 if flips == 0 else 3e-2
+            check(err <= tol, f"{arch}: prefill logits card vs cpu {err} > "
+                  f"{tol} ({flips} cache flips)")
+            rows[arch] = {"tokens_equal": True, "prefill_err": err,
+                          "cache_flips": flips, "tol": tol,
+                          "within_1e-4": err <= 1e-4}
+        log("phase 9 (a): card == cpu, five dense smoke configs, f32: " +
+            json.dumps(rows))
+        return rows
+
+    def _zoo_launcher(self):
+        """(b) ``python -m repro_torch.launch.serve --arch phi4-mini-3.8b
+        --full`` on the card: 16 requests, 12 new tokens, 8 slots."""
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               ZOO_ARCH, "--full", "--requests", "16", "--max-new", "12",
+               "--batch-slots", "8", "--device", "cuda"]
+        env = dict(os.environ, PYTHONPATH=SRC)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"launch.serve exited {proc.returncode}: {proc.stderr[-2000:]}")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(rep["requests"] == 16 and rep["tokens_generated"] == 192,
+              f"launch.serve report {rep}")
+        row = dict(rep, process_wall_s=round(wall, 2))
+        log(f"phase 9 (b): {' '.join(cmd[2:])} ({self.smi}): " +
+            json.dumps(row))
+        return row
+
+    def _zoo_full_width(self):
+        """(c)-(e) on phi4-mini-3.8b at full width, weights drawn on the card
+        and cast to bf16 once by ``ServeEngine``."""
+        import dataclasses
+        np, torch = self.np, self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data.pipeline import ByteTokenizer
+        from repro_torch.models import steps, transformer
+        from repro_torch.serving.engine import Request, ServeEngine, pad_wave
+        cfg = get_config(ZOO_ARCH)
+        n_params = transformer.count_params(cfg)
+        check(cfg.dtype == "bfloat16" and n_params == 3_836_021_760,
+              f"{ZOO_ARCH}: dtype {cfg.dtype}, {n_params} parameters")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = transformer.init_params(
+            cfg, torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        eng = ServeEngine(cfg, model, batch_slots=8, capacity=256)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        # the launcher's 16 requests
+        tok = ByteTokenizer(cfg.vocab_size)
+        rng = np.random.default_rng(0)
+        prompts = [np.clip(tok.encode(
+            f"Do records {int(rng.integers(1e4))} and "
+            f"{int(rng.integers(1e4))} refer to the same incident?"), 0,
+            cfg.vocab_size - 1) for _ in range(16)]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reqs = [Request(p, max_new_tokens=12) for p in prompts]
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        run_s = time.perf_counter() - t0
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        check(n_tok == 192, f"in-process serve: {n_tok} tokens")
+        n_steps = eng.steps_executed
+        peak = torch.cuda.max_memory_allocated()
+        # (c) one wave's prefill and one decode step, CUDA events
+        prefill = steps.make_prefill_step(cfg, 256)
+        decode = steps.make_decode_step(cfg)
+        wave = [torch.as_tensor(a, device=self.dev)
+                for a in pad_wave(sorted(prompts, key=len)[8:], 8)]
+        pmax = wave[0].shape[1]
+        prefill_ms = self.time_ms(lambda: prefill(model, *wave), runs=5,
+                                  reps=3)
+        state, logits = prefill(model, *wave)
+        token = steps.greedy_sample(logits)[:, None]
+        pos = (pmax - wave[1]).to(torch.int32)[:, None]
+
+        def step():
+            decode(model, state, token, pos, wave[1])
+        decode_ms = self.time_ms(step, runs=7, reps=10)
+        decode_one_ms = self.time_ms(step, runs=7, reps=1)
+        decode_dev_ms = self.device_ms(step, n=5)
+        decode_kernels = (None if decode_dev_ms is None
+                          else sum(self.device_calls.values()) / 5)
+        hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+        kv_bytes = 2 * 2 * 8 * (pmax + 1) * kv * hd * cfg.num_layers
+        bound_w = 1e3 * weight_bytes / self.bw
+        bound = 1e3 * (weight_bytes + kv_bytes) / self.bw
+        del state, logits
+        # (d) prefill 32 tokens, decode the 33rd, against a full forward
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 33)), device=self.dev)
+        st, _ = steps.make_prefill_step(cfg, 40)(model, toks[:, :32])
+        _, dec = decode(model, st, toks[:, 32:33],
+                        torch.full((2, 1), 32, dtype=torch.int32,
+                                   device=self.dev))
+        with torch.inference_mode():
+            full = model(toks)[0][:, -1]
+        dec_err = self._rel(dec, full)
+        check(dec_err < 0.15, f"full width: decode vs forward {dec_err}")
+        del st, full
+        # (e) a padded wave of three against solo runs, in bf16 (the served
+        # model) and in f32 (the same weights drawn again, not cast)
+        trio = [prompts[i][:n] for i, n in ((0, 20), (1, 35), (2, 52))]
+        padded = {cfg.dtype: self._padded_vs_solo(cfg, model, trio)}
+        del model, eng
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = transformer.init_params(
+            cfg32, torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        padded["float32"] = self._padded_vs_solo(cfg32, model, trio)
+        del model
+        self.zoo["full_width"] = {
+            "arch": ZOO_ARCH, "params": n_params, "dtype": cfg.dtype,
+            "weight_bytes": weight_bytes, "init_s": round(init_s, 3),
+            "init_peak_bytes": init_peak,
+            "serve_16x12": {"wall_s": run_s, "tokens": n_tok,
+                            "tok_per_s": n_tok / run_s,
+                            "decode_steps": n_steps},
+            "serve_peak_bytes": peak, "serve_peak_over_weights_bytes":
+                peak - base,
+            "prefill_ms_per_wave": prefill_ms, "wave": [8, pmax],
+            "decode_ms_per_step": decode_ms,
+            "decode_one_call_ms": decode_one_ms,
+            "decode_device_ms": decode_dev_ms,
+            "decode_device_activities_per_step": decode_kernels,
+            "decode_bound_ms_weights": bound_w,
+            "decode_bound_ms": bound, "bound_by": "bytes",
+            "kv_bytes_read": kv_bytes,
+            "decode_vs_forward_err": dec_err,
+            "padded_vs_solo": padded}
+        log(f"phase 9 (c)-(e): {ZOO_ARCH} full width ({self.smi}): " +
+            json.dumps(self.zoo["full_width"]))
+
+    def _padded_vs_solo(self, cfg, model, prompts):
+        """A padded wave of ``prompts`` against each prompt served alone:
+        the share of equal greedy tokens (6 new a request), which
+        requests' first tokens are equal, and the prefill's last logits
+        (padded against solo, of max |logit|) with the solo top-2 gap."""
+        torch = self.torch
+        from repro_torch.models import steps
+        from repro_torch.serving.engine import Request, ServeEngine, pad_wave
+        wave = ServeEngine(cfg, model, batch_slots=len(prompts),
+                           capacity=256).run(
+            [Request(p, max_new_tokens=6) for p in prompts])
+        solo = [ServeEngine(cfg, model, batch_slots=1, capacity=256).run(
+            [Request(p, max_new_tokens=6)])[0] for p in prompts]
+        same = sum(a == b for w, o in zip(wave, solo)
+                   for a, b in zip(w.out_tokens, o.out_tokens))
+        prefill = steps.make_prefill_step(cfg, 256)
+
+        def last_logits(batch):
+            return prefill(model, *[torch.as_tensor(a, device=self.dev)
+                                    for a in pad_wave(batch, len(batch))])[1]
+        padded = last_logits(prompts)
+        errs, gaps = [], []
+        for i, p in enumerate(prompts):
+            alone = last_logits([p])
+            errs.append(self._rel(padded[i:i + 1], alone))
+            top = torch.topk(alone[0], 2).values
+            gaps.append(float(top[0] - top[1]))
+        return {"equal_share": same / sum(len(o.out_tokens) for o in solo),
+                "first_token_equal": [w.out_tokens[0] == o.out_tokens[0]
+                                      for w, o in zip(wave, solo)],
+                "prefill_err": errs, "solo_top2_gap": gaps,
+                "max_logit": float(padded.abs().max())}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,12 @@ A serving plane store's entries (one side of one plane each) are
 "host": array, "kind": "embed" | "scalar", "scale": float}``: the raw
 extracted values, the vectorized plane and the corpus fingerprint it was
 keyed under.
+
+A model of the zoo is its parameter tree, in the JAX package's layout (a
+nested dict of arrays: ``embed/embedding``, ``ln_f``, ``prefix/<i>/...``,
+``scanned/<j>/...`` with a leading ``n_periods`` axis, ``unembed`` when
+untied); ``model_params_from_numpy`` loads it into the port's
+``Transformer``.
 """
 
 from __future__ import annotations
@@ -31,10 +37,14 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.common.config import ModelConfig
 from repro_torch.core.featurize import FeatureData, FeaturizationSpec
 from repro_torch.core.join import JoinPlan
 from repro_torch.core.scaffold import Scaffold
+from repro_torch.models.layers import tree_map
+from repro_torch.models.transformer import Transformer, weights_from_tree
 from repro_torch.serving.planes import FeaturePlaneStore
 
 
@@ -88,3 +98,13 @@ def store_from_state(entries: Sequence[dict], *,
                   list(e["values"]), np.asarray(e["host"], np.float32),
                   e["kind"], float(e["scale"]))
     return store
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: dict,
+                            device="cuda") -> Transformer:
+    """A ``Transformer`` on ``device`` holding the weights of ``tree``, a
+    nested dict of arrays in the reference's layout (scanned leaves are
+    unstacked, one a layer).  A missing or surplus leaf, or a shape that is
+    not the config's, raises ``ValueError``."""
+    return Transformer(cfg, weights_from_tree(cfg, tree_map(
+        lambda a: torch.tensor(np.asarray(a), device=device), tree)))
