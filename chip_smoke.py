@@ -17,7 +17,9 @@ a prefetch ring, candidates compacted on the card by ``csrc/extract.cu``)
 on the main path's corpus, the production cell and the serving path, then
 the join mesh (the ring L-sharded over ranks) at world sizes 1 and 2, and
 then the model zoo's serving path (dense GQA transformers through
-``ServeEngine``, phi4-mini-3.8b at full width through ``launch.serve``).
+``ServeEngine``, phi4-mini-3.8b at full width through ``launch.serve``),
+and then its training path (AdamW train steps with checkpoints and
+restart, phi4-mini-3.8b at full width).
 
 Phases, in order; any failure exits non-zero before the last line:
   1. the card (nvidia-smi name and power limit), the kernel builds and
@@ -119,7 +121,25 @@ Phases, in order; any failure exits non-zero before the last line:
      a full forward, within 0.15 of max |logit|; (e) a padded wave of
      three against solo runs at full width, in bf16 and in f32: the share
      of equal greedy tokens, the prefill logits' difference and the solo
-     top-2 gap (printed, not required).
+     top-2 gap (printed, not required);
+ 10. the model zoo's training path, which runs none of the three kernels
+     either (counts set to 0 before it stay 0): (a) the five dense smoke
+     configs in float32, weights drawn on the CPU and copied to the card,
+     two train steps (``steps.make_train_step``, AdamW) on both devices
+     from one batch: equal ``lr``, loss within 1e-5, ``grad_norm`` within
+     1e-3, ``m`` within 1e-3 of each parameter's max, parameters within
+     ``2.5 * lr`` a step (the share of elements further apart than
+     ``1e-2 * lr`` a step is printed);
+     (b) ``launch.train --device cuda`` at smoke size: a run that fails at
+     an injected step, then one that resumes from its checkpoint and ends
+     with a finite loss; (c) phi4-mini-3.8b at full width (f32 masters,
+     bf16 compute, remat) with the launcher's loader (batch 8, seq 128):
+     six steps, every loss finite and ``grad_norm`` > 0; step ms (CUDA
+     events, median of steps 2-6), tok/s, model FLOPs and MFU against the
+     bf16 peak, the optimizer alone against its bytes bound (p, g, m, v
+     read, p, m, v written: 28 B a parameter), the card's busy share of a
+     step (profiler, one step) beside the host's time to enqueue one, and
+     peak memory against the 61.38 GB of state.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -128,7 +148,8 @@ another order); every other difference fails.  Sweep counts must be equal.
 Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` from the main path -- the compaction's from the ring's main
 path, where kernels A and B give theirs as ``launches_ring`` -- and
-``launches_serving`` per serving path, ``launches_zoo`` 0), and as its
+``launches_serving`` per serving path, ``launches_zoo`` and
+``launches_train`` 0), and as its
 last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -157,6 +178,8 @@ SERVE_SIZE = 8
 ZOO_DENSE = ("phi4-mini-3.8b", "mistral-nemo-12b", "minitron-8b",
              "starcoder2-3b", "musicgen-medium")
 ZOO_ARCH = "phi4-mini-3.8b"
+# phase 10: bf16 dense peak of the data sheet (SXM / PCIe), for the MFU
+BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}
 
 
 def fail(msg):
@@ -192,6 +215,7 @@ def main():
     ctx.phase7_ring()
     ctx.phase8_mesh()
     ctx.phase9_zoo()
+    ctx.phase10_train()
     ctx.serving_launches()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -216,6 +240,7 @@ class Smoke:
         name = torch.cuda.get_device_name(0)
         self.flops, self.bw, self.tf32 = \
             PEAKS["pcie" if "PCIe" in name else "sxm"]
+        self.bf16 = BF16_PEAK["pcie" if "PCIe" in name else "sxm"]
         self.captured = {}
         self.kernels = []
         self.main_launches = {}
@@ -1279,6 +1304,16 @@ class Smoke:
                  staged.scal_r)
         ms = self.time_ms(lambda: self.ck.cnf_join_block(
             *strip, clauses, thetas, tl=256, tr=512, early_reject=True), runs=5)
+        # the same strip's plain version and library yardstick (one
+        # torch.matmul an embedding member, as phase 5's)
+        plain_ms = self.time_ms(lambda: self.cref.cnf_join_tiles_ref(
+            *strip, clauses, thetas, tl=256, tr=512, early_reject=True), runs=5)
+        members = [fi for m in clauses for k, fi in m if k == self.ck.VEC]
+
+        def library():
+            for fi in members:
+                torch.matmul(strip[0][fi], strip[1][fi].T)
+        lib_ms = self.time_ms(library, runs=5)
         # least time: each used plane read once, the assembly written once
         staged_bytes = sum(x.numel() * x.element_size() for x in staged.arrays)
         log("phase 6: production planes through the store: " + json.dumps({
@@ -1289,7 +1324,8 @@ class Smoke:
             "assemble_ms": assemble_ms,
             "assemble_bound_ms": 1e3 * 2 * staged_bytes / self.bw,
             "host_stage_s": round(host_stage_s, 4),
-            "strip_ms": ms, "mask_bits_equal": True}))
+            "strip_ms": ms, "strip_plain_ms": plain_ms,
+            "strip_library_ms": lib_ms, "mask_bits_equal": True}))
         # phase 7 runs the ring over these planes (and the pack_cache
         # entry of this assembly)
         self.prod_store = dict(store=store, planes=planes, specs=specs,
@@ -2248,6 +2284,267 @@ class Smoke:
                                       for w, o in zip(wave, solo)],
                 "prefill_err": errs, "solo_top2_gap": gaps,
                 "max_logit": float(padded.abs().max())}
+
+    # -- phase 10: the model zoo's training path ------------------------------
+    def phase10_train(self):
+        """The dense GQA transformers' train step on the card: (a) card
+        against CPU for the five dense smoke configs; (b) ``launch.train``
+        with an injected failure and a resume; (c) phi4-mini-3.8b at full
+        width.  The path runs none of the three hand-written kernels:
+        counts set to 0 before it and read after must stay 0."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.reset_launches()
+        self.train = {"card_vs_cpu": self._train_card_vs_cpu()}
+        self.train["launcher"] = self._train_launcher()
+        self.train["full_width"] = self._train_full_width()
+        launches = self.read_launches()
+        check(not any(launches.values()),
+              f"phase 10 launched a join kernel: {launches}")
+        for entry in self.kernels:
+            entry["launches_train"] = 0
+        log("phase 10: the model zoo's training path launches none of the "
+            f"three kernels (counts from its run: {json.dumps(launches)}); "
+            "its forward, backward and AdamW are plain PyTorch, as the "
+            "reference's are plain jnp")
+        torch.cuda.empty_cache()
+        log(f"phase 10: training ok ({time.perf_counter() - t0:.1f} s, "
+            f"{self.smi})")
+
+    def _device_once(self, fn):
+        """(device ms, device activities) of one call of ``fn``, from the
+        profiler's CUDA activities alone: a window of several calls of a
+        full-width train step (≈ 16 000 kernels each) loses records."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        self.torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            self.torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key != "Activity Buffer Request"]
+        return (sum(e.self_device_time_total for e in events) / 1e3,
+                sum(e.count for e in events))
+
+    def _train_card_vs_cpu(self):
+        """(a) For each dense smoke config in float32: weights drawn on the
+        CPU and copied to the card, two train steps on each device from
+        one batch, held to the CPU parity tests' float32 tolerances."""
+        import copy
+        import dataclasses
+        np, torch = self.np, self.torch
+        from repro_torch.common.config import TrainConfig
+        from repro_torch.configs import get_smoke
+        from repro_torch.models import steps, transformer
+        from repro_torch.optim import adamw
+        ulp2 = 2.0 ** -22
+        rows = {}
+        for arch in ZOO_DENSE:
+            cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+            cpu = transformer.init_params(
+                cfg, torch.Generator().manual_seed(0), "cpu")
+            tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 17))
+            out = {}
+            card = copy.deepcopy(cpu).to(self.dev)
+            for dev, model in (("cpu", cpu), (self.dev, card)):
+                opt = adamw.init_opt_state(dict(model.named_parameters()))
+                batch = {"tokens": torch.as_tensor(tok[:, :-1], device=dev),
+                         "labels": torch.as_tensor(tok[:, 1:], device=dev)}
+                step = steps.make_train_step(
+                    cfg, TrainConfig(total_steps=4, warmup_steps=1))
+                mets = []
+                for _ in range(2):
+                    opt, met = step(model, opt, batch)
+                    mets.append({k: v.cpu() for k, v in met.items()})
+                out[str(dev)] = (mets, {n: v.cpu() for n, v in opt["m"].items()},
+                                 {n: p.detach().cpu()
+                                  for n, p in model.named_parameters()})
+            (mc, m_c, p_c), (mg, m_g, p_g) = out["cpu"], out[str(self.dev)]
+            lrs, loss_err, gn_err = 0.0, 0.0, 0.0
+            for a, b in zip(mg, mc):
+                check(torch.equal(a["lr"], b["lr"]), f"{arch}: lr differs")
+                check(bool(torch.isfinite(a["loss"])), f"{arch}: loss")
+                loss_err = max(loss_err, abs(float(a["loss"])
+                                             / float(b["loss"]) - 1))
+                gn_err = max(gn_err, abs(float(a["grad_norm"])
+                                         / float(b["grad_norm"]) - 1))
+                lrs += float(b["lr"])
+            check(loss_err <= 1e-5 and gn_err <= 1e-3,
+                  f"{arch}: card vs cpu loss {loss_err}, grad_norm {gn_err}")
+            m_err, p_err, far, total = 0.0, 0.0, 0, 0
+            for n in p_c:
+                mx = float(m_c[n].abs().max())
+                m_err = max(m_err, float((m_g[n] - m_c[n]).abs().max()) / mx)
+                d = (p_g[n] - p_c[n]).abs() - ulp2 * p_c[n].abs()
+                p_err = max(p_err, float(d.max()) / lrs)
+                far += int((d > 1e-2 * lrs).sum())
+                total += d.numel()
+            check(m_err <= 1e-3 and p_err <= 2.5,
+                  f"{arch}: card vs cpu m {m_err}, params {p_err} lr")
+            rows[arch] = {"loss": [float(m["loss"]) for m in mg],
+                          "loss_err": loss_err, "grad_norm_err": gn_err,
+                          "m_err": m_err, "param_err_over_lr": p_err,
+                          "params_over_1e-2_lr": far / total}
+        log("phase 10 (a): card == cpu, two train steps, five dense smoke "
+            "configs, f32: " + json.dumps(rows))
+        return rows
+
+    def _train_launcher(self):
+        """(b) ``python -m repro_torch.launch.train --device cuda`` at smoke
+        size: ``--fail-at 5`` leaves checkpoints at steps 2 and 4; a plain
+        run resumes at 4 and ends with a finite loss."""
+        import shutil
+        import tempfile
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        ck = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT, "build"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               ZOO_ARCH, "--smoke", "--steps", "8", "--checkpoint-every", "2",
+               "--checkpoint-dir", ck, "--device", "cuda"]
+        env = dict(os.environ, PYTHONPATH=SRC)
+        row = {}
+        try:
+            for what, extra in (("fail", ["--fail-at", "5"]), ("resume", [])):
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd + extra, cwd=ROOT, env=env,
+                                      capture_output=True, text=True,
+                                      timeout=300)
+                row[f"{what}_wall_s"] = round(time.perf_counter() - t0, 2)
+                if what == "fail":
+                    check(proc.returncode != 0
+                          and "SimulatedFailure" in proc.stderr,
+                          f"launch.train --fail-at 5 exited "
+                          f"{proc.returncode}: {proc.stderr[-2000:]}")
+                    check(sorted(os.listdir(ck)) ==
+                          ["step_00000002", "step_00000004"],
+                          f"checkpoints after the failure: {os.listdir(ck)}")
+                    continue
+                check(proc.returncode == 0, f"launch.train resume exited "
+                      f"{proc.returncode}: {proc.stderr[-2000:]}")
+                check("resumed from checkpoint step 4" in proc.stdout,
+                      f"launch.train did not resume: {proc.stdout[-500:]}")
+                rep = json.loads(proc.stdout.strip().splitlines()[-1])
+                check(rep["steps"] == 8 and self.np.isfinite(rep["loss"]),
+                      f"launch.train report {rep}")
+                row.update(rep, checkpoints=sorted(os.listdir(ck)))
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+        shown = " ".join("<tmp>" if c == ck else c for c in cmd[2:])
+        log(f"phase 10 (b): {shown} --fail-at 5, then resumed ({self.smi}): "
+            + json.dumps(row))
+        return row
+
+    def _train_full_width(self):
+        """(c) phi4-mini-3.8b at full width: f32 masters drawn on the card,
+        bf16 compute, remat as the config says, AdamW in place; six steps
+        of the launcher's loader (batch 8, seq 128, ``warmup_steps`` 1 as
+        ``train()`` sets it for 6 steps)."""
+        np, torch = self.np, self.torch
+        from repro_torch.common.config import TrainConfig
+        from repro_torch.configs import get_config
+        from repro_torch.launch.train import make_loader
+        from repro_torch.models import steps, transformer
+        from repro_torch.optim import adamw
+        cfg = get_config(ZOO_ARCH)
+        n_params = transformer.count_params(cfg)
+        check(cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+              and cfg.remat and n_params == 3_836_021_760,
+              f"{ZOO_ARCH}: dtype {cfg.dtype}, params {cfg.param_dtype}, "
+              f"remat {cfg.remat}, {n_params} parameters")
+        n_steps, b, s = 6, 8, 128
+        tcfg = TrainConfig(total_steps=n_steps,
+                           warmup_steps=max(n_steps // 10, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = transformer.init_params(
+            cfg, torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        params = dict(model.named_parameters())
+        opt = adamw.init_opt_state(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_bytes = 16 * n_params       # p, g (f32), m, v
+        train_step = steps.make_train_step(cfg, tcfg)
+        loader = make_loader(cfg, batch=b, seq=s, seed=0)
+        rows, ms = [], []
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(n_steps):
+                batch = {k: torch.as_tensor(v, device=self.dev)
+                         for k, v in loader.next().items()}
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                opt, met = train_step(model, opt, batch)
+                ev[1].record()
+                ev[1].synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+                rows.append({k: float(v) for k, v in met.items()})
+            peak = torch.cuda.max_memory_allocated()
+            for i, r in enumerate(rows):
+                check(np.isfinite(r["loss"]) and r["grad_norm"] > 0,
+                      f"full width step {i + 1}: {r}")
+            step_ms = statistics.median(ms[1:])
+            # the card's busy share of a step: one more step, profiled, and
+            # the host's time to enqueue one (the step never syncs)
+            batch = {k: torch.as_tensor(v, device=self.dev)
+                     for k, v in loader.next().items()}
+            dev_ms, n_kernels = self._device_once(
+                lambda: train_step(model, opt, batch))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, opt, batch)
+            enqueue_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            # the optimizer alone: fresh f32 gradients each call, made
+            # outside the timed region (adamw_update consumes them)
+            opt_ms = []
+            for i in range(4):
+                grads = {n: torch.randn_like(p) * 1e-4
+                         for n, p in params.items()}
+                if i == 3:
+                    opt_dev_ms, _ = self._device_once(
+                        lambda: adamw.adamw_update(params, grads, opt, tcfg))
+                    continue
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                adamw.adamw_update(params, grads, opt, tcfg)
+                ev[1].record()
+                ev[1].synchronize()
+                opt_ms.append(ev[0].elapsed_time(ev[1]))
+            del grads
+            opt_peak = torch.cuda.max_memory_allocated()
+        finally:
+            loader.close()
+        tokens = b * s
+        hd = cfg.resolved_head_dim
+        flops = 6 * n_params * tokens + \
+            12 * cfg.num_layers * cfg.num_heads * hd * s * tokens
+        opt_bytes = 28 * n_params
+        row = {
+            "arch": ZOO_ARCH, "params": n_params, "batch": [b, s],
+            "tokens_per_step": tokens, "init_s": round(init_s, 3),
+            "loss": [r["loss"] for r in rows],
+            "grad_norm": [r["grad_norm"] for r in rows],
+            "lr": [r["lr"] for r in rows], "step_ms": ms,
+            "step_ms_median_2_6": step_ms,
+            "tok_per_s": tokens / (step_ms / 1e3),
+            "model_flops_per_step": flops,
+            "flop_bound_ms": 1e3 * flops / self.bf16,
+            "mfu": flops / (step_ms / 1e3) / self.bf16,
+            "step_device_ms": dev_ms, "step_device_kernels": n_kernels,
+            "device_busy_share": dev_ms / step_ms,
+            "step_host_enqueue_ms": enqueue_ms,
+            "optimizer_ms": opt_ms,
+            "optimizer_ms_median": statistics.median(opt_ms),
+            "optimizer_device_ms": opt_dev_ms,
+            "optimizer_bytes": opt_bytes,
+            "optimizer_bound_ms": 1e3 * opt_bytes / self.bw,
+            "state_bytes": state_bytes, "peak_bytes_steps": peak,
+            "peak_bytes_with_optimizer_timing": opt_peak}
+        del model, params, opt, batch
+        log(f"phase 10 (c): {ZOO_ARCH} full width, train steps ({self.smi}): "
+            + json.dumps(row))
+        return row
 
 
 if __name__ == "__main__":

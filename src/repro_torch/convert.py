@@ -29,7 +29,10 @@ A model of the zoo is its parameter tree, in the JAX package's layout (a
 nested dict of arrays: ``embed/embedding``, ``ln_f``, ``prefix/<i>/...``,
 ``scanned/<j>/...`` with a leading ``n_periods`` axis, ``unembed`` when
 untied); ``model_params_from_numpy`` loads it into the port's
-``Transformer``.
+``Transformer`` and ``model_tree_to_numpy`` gives it back.  The AdamW state
+is ``{"m": tree, "v": tree, "step": int32}``, ``m`` and ``v`` in the same
+layout (``opt_state_from_numpy`` / ``opt_state_to_numpy``), so trained
+weights and optimizer state cross between the packages both ways.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ from repro_torch.core.featurize import FeatureData, FeaturizationSpec
 from repro_torch.core.join import JoinPlan
 from repro_torch.core.scaffold import Scaffold
 from repro_torch.models.layers import tree_map
-from repro_torch.models.transformer import Transformer, weights_from_tree
+from repro_torch.models.transformer import (
+    Transformer, tree_from_weights, weights_from_tree,
+)
 from repro_torch.serving.planes import FeaturePlaneStore
 
 
@@ -108,3 +113,33 @@ def model_params_from_numpy(cfg: ModelConfig, tree: dict,
     not the config's, raises ``ValueError``."""
     return Transformer(cfg, weights_from_tree(cfg, tree_map(
         lambda a: torch.tensor(np.asarray(a), device=device), tree)))
+
+
+def model_tree_to_numpy(cfg: ModelConfig, model: Transformer) -> dict:
+    """``model``'s weights as a nested dict of numpy arrays in the
+    reference's layout (scanned leaves restacked)."""
+    return tree_map(lambda t: t.numpy(), tree_from_weights(cfg, {
+        n: p.detach().cpu() for n, p in model.named_parameters()}))
+
+
+def opt_state_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+    """The port's AdamW state (``optim.adamw``: ``m``, ``v`` keyed by
+    parameter name, ``step`` an int32 0-dim tensor) on ``device`` from the
+    reference's ``{"m", "v", "step"}`` tree of arrays."""
+    def moments(t):
+        return weights_from_tree(cfg, tree_map(
+            lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                                   device=device), t))
+    return {"m": moments(tree["m"]), "v": moments(tree["v"]),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_state_to_numpy(cfg: ModelConfig, opt_state: dict) -> dict:
+    """The reference's ``{"m", "v", "step"}`` tree of numpy arrays from the
+    port's AdamW state."""
+    def moments(t):
+        return tree_map(lambda a: a.numpy(), tree_from_weights(
+            cfg, {n: v.detach().cpu() for n, v in t.items()}))
+    return {"m": moments(opt_state["m"]), "v": moments(opt_state["v"]),
+            "step": np.asarray(int(opt_state["step"]), np.int32)}

@@ -1,17 +1,112 @@
-"""Step functions of the serving path: prefill_step / decode_step.
+"""Step functions: loss / train_step / prefill_step / decode_step.
 
-The training steps (``cross_entropy``, ``loss_fn``, ``make_train_step``)
-come with the training slice (ROADMAP queue 1, item 6).  Each step runs
-under ``torch.inference_mode`` and takes the ``Transformer`` where the
-reference takes its parameter tree.
+Each step takes the ``Transformer`` where the reference takes its parameter
+tree.  The serving steps run under ``torch.inference_mode``; the train step
+takes gradients with ``torch.autograd`` and updates the model's parameters
+and the optimizer state in place.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import functional_call
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import ModelConfig, TrainConfig
 from repro_torch.models import transformer
+from repro_torch.optim import adamw
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean CE.  logits: (B, S, V) f32, labels: (B, S) int (-1 =
+    pad), written as the reference writes it (``F.cross_entropy`` rounds
+    elsewhere)."""
+    mask = labels >= 0
+    safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - ll) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+
+
+def loss_fn(model, batch: dict, params: dict = None):
+    """(ce + aux, {"ce", "aux"}) of ``model`` on ``batch`` (``tokens``,
+    ``labels``); with ``params`` (name -> tensor) the model runs on those
+    tensors in place of its own parameters."""
+    tokens = batch["tokens"]
+    logits, _, aux = (model(tokens) if params is None
+                      else functional_call(model, params, (tokens,)))
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """Returns train_step(model, opt_state, batch) -> (opt_state, metrics).
+
+    The model's parameters and ``opt_state`` (``adamw.init_opt_state``) are
+    updated in place; ``metrics`` holds ``ce``, ``aux``, ``loss``,
+    ``grad_norm`` and ``lr`` as 0-dim tensors.  As the reference's:
+    gradient accumulation over ``tcfg.microbatch`` rows (summed in order,
+    then divided by the count), ``grads_dtype="bfloat16"`` (the gradient
+    is taken with respect to bf16 copies of the parameters whose reference
+    leaf is f32 and at least 2-D), ``grad_compression`` applied before the
+    update.
+    """
+    lr_fn = adamw.cosine_schedule(tcfg)
+    leaves = transformer.reference_leaves(cfg)
+    order = [n for _, _, names in leaves for n in names]
+    bf16 = {n for _, d, names in leaves for n in names
+            if tcfg.grads_dtype == "bfloat16" and len(d.shape) >= 2}
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        params = {n: params[n] for n in order}           # reference order
+        diff = {n: (p.detach().to(torch.bfloat16).requires_grad_()
+                    if n in bf16 and p.dtype == torch.float32 else p)
+                for n, p in params.items()}
+        for t in diff.values():
+            t.grad = None
+        b, mbs = batch["tokens"].shape[0], tcfg.microbatch
+        nmb = b // mbs if mbs and mbs < b else 0
+        with torch.enable_grad():
+            for i in range(max(nmb, 1)):
+                part = ({k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
+                        if nmb else batch)
+                loss_i, met_i = loss_fn(model, part, diff if bf16 else None)
+                loss_i.backward()
+                met_i = {k: v.detach() for k, v in met_i.items()}
+                if i == 0:
+                    loss, metrics = loss_i.detach(), met_i
+                else:
+                    loss = loss + loss_i.detach()
+                    metrics = {k: metrics[k] + met_i[k] for k in metrics}
+        grads = {}
+        for n, t in diff.items():
+            grads[n], t.grad = t.grad, None
+        if nmb:
+            loss = loss / nmb
+            metrics = {k: v / nmb for k, v in metrics.items()}
+            for g in grads.values():
+                g.div_(nmb)
+        if tcfg.grad_compression != "none":
+            for _, _, names in leaves:          # a reference leaf at a time
+                _compress(grads, names, tcfg.grad_compression)
+        _, opt_state, opt_metrics = adamw.adamw_update(
+            params, grads, opt_state, tcfg, lr_fn)
+        return opt_state, dict(metrics, loss=loss, **opt_metrics)
+
+    return train_step
+
+
+def _compress(grads: dict, names: list, mode: str) -> None:
+    """Quantize and dequantize, in ``grads``, the gradients of one
+    reference leaf: a scanned leaf's layers are stacked, so that int8's
+    absmax scale is the whole leaf's, as in the reference."""
+    whole = grads[names[0]] if len(names) == 1 else torch.stack(
+        [grads[n] for n in names])
+    payload, deq = adamw.compress_grads({"g": whole}, mode)
+    back = deq(payload)["g"]
+    for i, n in enumerate(names):
+        grads[n] = back if len(names) == 1 else back[i]
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: int):

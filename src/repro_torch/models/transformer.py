@@ -5,28 +5,34 @@ decomposed into *segments*, a prefix of ``num_layers % period`` layers and
 ``num_layers // period`` scanned repetitions of the block-pattern period,
 whose leaves carry a leading ``n_periods`` axis.  ``Transformer`` holds the
 same weights unstacked, one ``Block`` a layer in layer order, and runs
-them in a Python loop (``scan_layers`` and ``remat`` change nothing at
-inference).
+them in a Python loop; ``weights_from_tree`` and ``tree_from_weights`` map
+between the two layouts.  ``scan_layers`` changes nothing; ``remat``
+checkpoints each block when gradients are taken (training), and changes
+nothing at inference.
 
-Only ``attn`` blocks with a dense (SwiGLU) FFN are ported; MLA,
-cross-attention, MoE and the SSM blocks raise ``NotImplementedError``
-(ROADMAP queue 1, item 6).
+Only ``attn`` blocks with a dense (SwiGLU) FFN are ported, for serving and
+training; MLA, cross-attention, MoE and the SSM blocks raise
+``NotImplementedError`` (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.common.config import BlockKind, FFNKind, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     DenseFFN, ParamDef, ParamTree, RMSNorm, count_tree, dense_ffn_defs,
-    embedding_defs, init_tree, softcap, stack_defs, tree_leaves,
+    embedding_defs, init_tree, softcap, stack_defs, tree_leaves, tree_map,
 )
 
 _SSM = (BlockKind.MAMBA2.value, BlockKind.SLSTM.value, BlockKind.MLSTM.value)
@@ -201,6 +207,29 @@ def _port_name(prefix: str, leaf: tuple) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
+def _leaf_names(path: tuple, segs: Segments) -> list:
+    """The port's names of the reference leaf at ``path``: one, or one a
+    period (in period order) for a ``scanned`` leaf."""
+    if path[0] == "prefix":
+        return [_port_name(f"layers.{path[1]}", path[2:])]
+    if path[0] == "scanned":
+        n_pre, per = len(segs.prefix), len(segs.period)
+        return [_port_name(f"layers.{n_pre + p * per + int(path[1])}", path[2:])
+                for p in range(segs.n_periods)]
+    return [_port_name("", path)]
+
+
+def reference_leaves(cfg: ModelConfig) -> list:
+    """``(path, ParamDef, names)`` for every leaf of the reference's tree,
+    in its leaf order (``jax.tree.flatten``: dict keys sorted at every
+    level): the leaf's definition (a scanned leaf's has the leading
+    ``n_periods`` axis) and the port's parameter names that hold it (one a
+    layer, in period order, for a scanned leaf)."""
+    segs = plan_segments(cfg)
+    return [(path, d, _leaf_names(path, segs))
+            for path, d in sorted(tree_leaves(model_defs(cfg)))]
+
+
 def weights_from_tree(cfg: ModelConfig, tree: dict) -> dict:
     """The ``Transformer``'s weights, keyed by parameter name, from a tree
     of tensors in the reference's layout (``embed/embedding``, ``ln_f``,
@@ -216,22 +245,35 @@ def weights_from_tree(cfg: ModelConfig, tree: dict) -> dict:
                          f"{['/'.join(p) for p in missing]} and has surplus "
                          f"{['/'.join(p) for p in surplus]}")
     segs = plan_segments(cfg)
-    n_pre, per = len(segs.prefix), len(segs.period)
     out = {}
     for path, d in defs.items():
         a = got[path]
         if tuple(a.shape) != tuple(d.shape):
             raise ValueError(f"{cfg.name}: leaf {'/'.join(path)} has shape "
                              f"{tuple(a.shape)}, want {tuple(d.shape)}")
-        if path[0] == "prefix":
-            out[_port_name(f"layers.{path[1]}", path[2:])] = a
-        elif path[0] == "scanned":
-            for p in range(segs.n_periods):
-                layer = n_pre + p * per + int(path[1])
-                out[_port_name(f"layers.{layer}", path[2:])] = a[p]
+        names = _leaf_names(path, segs)
+        if path[0] == "scanned":
+            out.update((n, a[p]) for p, n in enumerate(names))
         else:
-            out[_port_name("", path)] = a
+            out[names[0]] = a
     return out
+
+
+def tree_from_weights(cfg: ModelConfig, weights: dict) -> dict:
+    """The inverse of ``weights_from_tree``: a tree in the reference's
+    layout (``prefix`` present, empty where the config has no prefix
+    layers) from tensors keyed by parameter name.  A scanned leaf is its
+    layers stacked on a new leading ``n_periods`` axis (a copy)."""
+    segs, defs = plan_segments(cfg), model_defs(cfg)
+    tree = tree_map(lambda d: None, defs)
+    for path, _ in tree_leaves(defs):
+        names = _leaf_names(path, segs)
+        node = tree
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = (torch.stack([weights[n] for n in names])
+                          if path[0] == "scanned" else weights[names[0]])
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -300,17 +342,25 @@ class Transformer(nn.Module):
         """tokens: (B, S) int.  Returns (logits f32 (B, S, V), new_state,
         aux_loss).  With ``state`` (``init_state``) each layer writes its
         KV cache in place.  valid_from: optional (B,) int — positions below
-        it are left-pads (serving batches), masked in attention."""
+        it are left-pads (serving batches), masked in attention.  With
+        ``cfg.remat``, when gradients are taken and there is no state, each
+        block is checkpointed (``_remat``)."""
         cdt = self.compute_dtype
         emb = self.embed["embedding"]
         x = nn.functional.embedding(tokens, emb).to(cdt)
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        remat = self.cfg.remat and state is None and torch.is_grad_enabled()
         new_state = [] if state is not None else None
         for i, blk in enumerate(self.layers):
-            x, st = blk(x, positions, state[i] if state is not None else None,
-                        valid_from)
+            if remat:
+                x, st = _remat(blk, self.cfg.remat_policy, x, positions,
+                               valid_from)
+            else:
+                x, st = blk(x, positions,
+                            state[i] if state is not None else None,
+                            valid_from)
             if state is not None:
                 new_state.append(st)
         x = self.ln_f(x)
@@ -321,6 +371,26 @@ class Transformer(nn.Module):
             logits = torch.matmul(x, self.unembed.to(cdt))
         logits = softcap(logits.float(), self.cfg.logits_softcap)
         return logits, new_state, torch.zeros((), device=x.device)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(blk: Block, policy: str, x, positions, valid_from):
+    """``blk`` under activation checkpointing, as the reference's
+    ``jax.checkpoint`` a block: ``nothing_saveable`` keeps only the block's
+    inputs and recomputes the rest in the backward pass; any other policy
+    (``dots_saveable``) also keeps the outputs of its matrix products."""
+    kw = {} if policy == "nothing_saveable" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+    return checkpoint(blk, x, positions, None, valid_from,
+                      use_reentrant=False, **kw)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Transformer:
