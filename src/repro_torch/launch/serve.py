@@ -1,7 +1,10 @@
-"""Serving launcher: batched generation with a dense --arch backbone.
+"""Serving launcher: batched generation with an --arch backbone of the zoo
+(the dense GQA configs, llama4-maverick's MoE, deepseek-v2's MLA + MoE).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --smoke --requests 16 --max-new 12 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --full --requests 16 --max-new 12 --batch-slots 8     # on the card
 

@@ -25,12 +25,16 @@ class ParamDef:
     scale: float = 1.0
     dtype: str = "float32"
 
-    def initialize(self, generator: torch.Generator, device) -> torch.Tensor:
+    def initialize(self, generator: torch.Generator, device,
+                   dtype: str = None) -> torch.Tensor:
         """``normal * scale / sqrt(fan_in)`` drawn from ``generator`` (which
         must live on ``device``), or zeros or ones.  ``fan_in`` is the first
         dim, as in the reference: for a scanned leaf that is the number of
-        periods."""
-        dt = getattr(torch, self.dtype)
+        periods.  The draw and the scaling are f32 (in place: one f32
+        scratch the size of the leaf), then rounded once to ``dtype``
+        (default: the definition's), so a leaf drawn in bf16 equals the f32
+        leaf cast to bf16."""
+        dt = getattr(torch, dtype or self.dtype)
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dt, device=device)
         if self.init == "ones":
@@ -39,7 +43,7 @@ class ParamDef:
         std = self.scale / math.sqrt(fan_in)
         x = torch.randn(self.shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * std).to(dt)
+        return x.mul_(std).to(dt)
 
 
 ParamTree = dict  # nested dict of ParamDef / tensors
@@ -60,9 +64,11 @@ def tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def init_tree(defs: ParamTree, generator: torch.Generator, device) -> ParamTree:
-    """Materialize a tree of ParamDef into tensors, drawn in leaf order."""
-    return tree_map(lambda d: d.initialize(generator, device), defs)
+def init_tree(defs: ParamTree, generator: torch.Generator, device,
+              dtype: str = None) -> ParamTree:
+    """Materialize a tree of ParamDef into tensors, drawn in leaf order,
+    each leaf in ``dtype`` (default: its definition's) as it is drawn."""
+    return tree_map(lambda d: d.initialize(generator, device, dtype), defs)
 
 
 def count_tree(defs: ParamTree) -> int:
@@ -88,15 +94,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (x * weight.float()).to(dt)
 
 
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """silu op by op as the reference's graph has it (its logistic lowers
+    to 1 / (1 + exp(-g))), each op rounded to g's dtype: a fused silu
+    rounds once, and in bf16 the port would no longer equal the reference
+    run op by op."""
+    return g * torch.reciprocal(1 + torch.exp(-g))
+
+
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down, compute_dtype) -> torch.Tensor:
     g = torch.einsum("...d,df->...f", x, w_gate.to(compute_dtype))
     u = torch.einsum("...d,df->...f", x, w_up.to(compute_dtype))
-    # silu op by op as the reference's graph has it (its logistic lowers to
-    # 1 / (1 + exp(-g))), each op rounded to the compute dtype: a fused
-    # silu rounds once, and in bf16 the port would no longer equal the
-    # reference run op by op
-    h = g * torch.reciprocal(1 + torch.exp(-g)) * u
-    return torch.einsum("...f,fd->...d", h, w_down.to(compute_dtype))
+    return torch.einsum("...f,fd->...d", silu(g) * u, w_down.to(compute_dtype))
 
 
 def dense_ffn_defs(d_model: int, d_ff: int) -> ParamTree:

@@ -1,4 +1,4 @@
-"""Causal LM of the model zoo: the dense GQA transformers.
+"""Causal LM of the model zoo: GQA and MLA attention, dense and MoE FFNs.
 
 The parameter tree keeps the reference's layout: the layer stack is
 decomposed into *segments*, a prefix of ``num_layers % period`` layers and
@@ -10,9 +10,11 @@ between the two layouts.  ``scan_layers`` changes nothing; ``remat``
 checkpoints each block when gradients are taken (training), and changes
 nothing at inference.
 
-Only ``attn`` blocks with a dense (SwiGLU) FFN are ported, for serving and
-training; MLA, cross-attention, MoE and the SSM blocks raise
-``NotImplementedError`` (ROADMAP queue 1, item 6).
+``attn`` (GQA) and ``mla`` blocks with a dense (SwiGLU) or MoE FFN are
+ported, for serving and training; cross-attention and the modality
+frontend (ROADMAP queue 1, item 6.4) and the SSM blocks (item 6.5) raise
+``NotImplementedError``.  The forward returns the MoE layers' aux losses
+summed as the reference sums them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.common.config import BlockKind, FFNKind, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     DenseFFN, ParamDef, ParamTree, RMSNorm, count_tree, dense_ffn_defs,
     embedding_defs, init_tree, softcap, stack_defs, tree_leaves, tree_map,
@@ -52,14 +55,15 @@ def block_defs(cfg: ModelConfig, kind: str, ffn: str) -> ParamTree:
     elif kind == BlockKind.CROSS_ATTN.value:
         defs["attn"] = attn.cross_attn_defs(cfg)
     elif kind in _SSM:
-        raise attn.not_ported(f"the {kind} block (models/ssm.py)")
+        raise attn.not_ported(f"the {kind} block (models/ssm.py)", "6.5")
     else:
         raise ValueError(kind)
     if ffn == FFNKind.DENSE.value and cfg.d_ff > 0:
         defs["ln2"] = ParamDef((d,), (None,), init="ones")
         defs["ffn"] = dense_ffn_defs(d, cfg.d_ff)
     elif ffn == FFNKind.MOE.value:
-        raise attn.not_ported("the MoE FFN (models/moe.py)")
+        defs["ln2"] = ParamDef((d,), (None,), init="ones")
+        defs["ffn"] = moe_lib.moe_defs(cfg)
     return defs
 
 
@@ -71,35 +75,50 @@ def block_state_defs(cfg: ModelConfig, kind: str, batch: int, capacity: int) -> 
     if kind == BlockKind.CROSS_ATTN.value:
         return {}
     if kind in _SSM:
-        raise attn.not_ported(f"the {kind} block's state (models/ssm.py)")
+        raise attn.not_ported(f"the {kind} block's state (models/ssm.py)",
+                              "6.5")
     raise ValueError(kind)
 
 
-class Block(nn.Module):
-    """Pre-norm residual block: ``ln1`` + GQA attention, then ``ln2`` +
-    the dense FFN where the layer has one.  ``weights`` is keyed by the
-    block's parameter names (``ln1.weight``, ``attn.wq``, ...)."""
+def _sub(weights: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in weights.items()
+            if k.startswith(prefix)}
 
-    def __init__(self, cfg: ModelConfig, weights: dict,
+
+class Block(nn.Module):
+    """Pre-norm residual block of the layer's ``(kind, ffn)``: ``ln1`` +
+    GQA (``attn``) or MLA (``mla``) attention, then ``ln2`` + the dense or
+    MoE FFN where the layer has one.  ``weights`` is keyed by the block's
+    parameter names (``ln1.weight``, ``attn.wq``, ``ffn.router``, ...).
+    The forward returns (x, new_state, aux), aux the MoE FFN's loss (None
+    for any other block: the reference's zero), as the reference's
+    ``block_forward``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, ffn: str, weights: dict,
                  compute_dtype: torch.dtype):
         super().__init__()
         self.ln1 = RMSNorm(weights["ln1.weight"], cfg.norm_eps)
-        self.attn = attn.GQAAttention(
-            cfg, {n: weights[f"attn.{n}"] for n in ("wq", "wk", "wv", "wo")},
-            compute_dtype)
+        attn_cls = {BlockKind.ATTN.value: attn.GQAAttention,
+                    BlockKind.MLA.value: attn.MLAAttention}[kind]
+        self.attn = attn_cls(cfg, _sub(weights, "attn."), compute_dtype)
         self.ffn = None
-        if "ffn.w_gate" in weights:
+        if "ln2.weight" in weights:
             self.ln2 = RMSNorm(weights["ln2.weight"], cfg.norm_eps)
-            self.ffn = DenseFFN({n: weights[f"ffn.{n}"]
-                                 for n in ("w_gate", "w_up", "w_down")},
-                                compute_dtype)
+            ffn_w = _sub(weights, "ffn.")
+            self.ffn = (moe_lib.MoEFFN(cfg, ffn_w, compute_dtype)
+                        if ffn == FFNKind.MOE.value
+                        else DenseFFN(ffn_w, compute_dtype))
 
     def forward(self, x, positions, state=None, valid_from=None):
         h, new_state = self.attn(self.ln1(x), positions, state, valid_from)
         x = x + h
-        if self.ffn is not None:
+        aux = None
+        if isinstance(self.ffn, moe_lib.MoEFFN):
+            h, aux = self.ffn(self.ln2(x))
+            x = x + h
+        elif self.ffn is not None:
             x = x + self.ffn(self.ln2(x))
-        return x, new_state
+        return x, new_state, aux
 
 
 # ---------------------------------------------------------------------------
@@ -322,17 +341,17 @@ class Transformer(nn.Module):
         super().__init__()
         model_defs(cfg)                       # raises for unported kinds
         if cfg.frontend_embed_dim:
-            raise attn.not_ported("the modality frontend (frontend_embed_dim)")
+            raise attn.not_ported("the modality frontend (frontend_embed_dim)",
+                                 "6.4")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.dtype)
         self.embed = nn.ParameterDict(
             {"embedding": nn.Parameter(weights["embed.embedding"])})
-        self.layers = nn.ModuleList()
-        for i in range(cfg.num_layers):
-            pre = f"layers.{i}."
-            self.layers.append(Block(
-                cfg, {k[len(pre):]: v for k, v in weights.items()
-                      if k.startswith(pre)}, self.compute_dtype))
+        self.segments = plan_segments(cfg)
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, ffn, _sub(weights, f"layers.{i}."),
+                  self.compute_dtype)
+            for i, (kind, ffn) in enumerate(self.segments.layers))
         self.ln_f = RMSNorm(weights["ln_f.weight"], cfg.norm_eps)
         self.unembed = (None if cfg.tie_embeddings
                         else nn.Parameter(weights["unembed"]))
@@ -340,8 +359,10 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 state: Optional[list] = None, valid_from=None):
         """tokens: (B, S) int.  Returns (logits f32 (B, S, V), new_state,
-        aux_loss).  With ``state`` (``init_state``) each layer writes its
-        KV cache in place.  valid_from: optional (B,) int — positions below
+        aux_loss), the aux loss summed over the MoE layers as the reference
+        sums it (the prefix's in order, then the scanned periods' sums).
+        With ``state`` (``init_state``) each layer writes its cache in
+        place.  valid_from: optional (B,) int — positions below
         it are left-pads (serving batches), masked in attention.  With
         ``cfg.remat``, when gradients are taken and there is no state, each
         block is checkpointed (``_remat``)."""
@@ -353,14 +374,16 @@ class Transformer(nn.Module):
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         remat = self.cfg.remat and state is None and torch.is_grad_enabled()
         new_state = [] if state is not None else None
+        auxes = []
         for i, blk in enumerate(self.layers):
             if remat:
-                x, st = _remat(blk, self.cfg.remat_policy, x, positions,
-                               valid_from)
+                x, st, aux = _remat(blk, self.cfg.remat_policy, x, positions,
+                                    valid_from)
             else:
-                x, st = blk(x, positions,
-                            state[i] if state is not None else None,
-                            valid_from)
+                x, st, aux = blk(x, positions,
+                                 state[i] if state is not None else None,
+                                 valid_from)
+            auxes.append(aux)
             if state is not None:
                 new_state.append(st)
         x = self.ln_f(x)
@@ -370,7 +393,33 @@ class Transformer(nn.Module):
         else:
             logits = torch.matmul(x, self.unembed.to(cdt))
         logits = softcap(logits.float(), self.cfg.logits_softcap)
-        return logits, new_state, torch.zeros((), device=x.device)
+        return logits, new_state, self._aux_total(auxes, x.device)
+
+    def _aux_total(self, auxes: list, device) -> torch.Tensor:
+        """The prefix layers' aux added in order, then the sum over the
+        scanned periods of each period's aux (its layers added in order):
+        the reference's order of additions, its zeros (None here) left
+        out, as adding them changes no bit."""
+        segs = self.segments
+        n_pre, per = len(segs.prefix), len(segs.period)
+        total = torch.zeros((), device=device)
+        for aux in auxes[:n_pre]:
+            if aux is not None:
+                total = total + aux
+        periods = [_sum(auxes[n_pre + p * per:n_pre + (p + 1) * per])
+                   for p in range(segs.n_periods)]
+        if any(a is not None for a in periods):
+            total = total + torch.sum(torch.stack(periods))
+        return total
+
+
+def _sum(auxes: list):
+    """The non-None entries added in order, or None."""
+    out = None
+    for aux in auxes:
+        if aux is not None:
+            out = aux if out is None else out + aux
+    return out
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -386,7 +435,8 @@ def _remat(blk: Block, policy: str, x, positions, valid_from):
     """``blk`` under activation checkpointing, as the reference's
     ``jax.checkpoint`` a block: ``nothing_saveable`` keeps only the block's
     inputs and recomputes the rest in the backward pass; any other policy
-    (``dots_saveable``) also keeps the outputs of its matrix products."""
+    (``dots_saveable``) also keeps the outputs of its matrix products.
+    Returns the block's (x, state, aux)."""
     kw = {} if policy == "nothing_saveable" else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _save_dots)}
     return checkpoint(blk, x, positions, None, valid_from,
@@ -396,6 +446,10 @@ def _remat(blk: Block, policy: str, x, positions, valid_from):
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Transformer:
     """A ``Transformer`` with weights drawn as the reference's
     ``init_params`` draws them (``ParamDef.initialize`` per leaf of the
-    reference's tree) from ``generator``, which lives on ``device``."""
+    reference's tree) from ``generator``, which lives on ``device``.  Each
+    leaf is drawn in f32 and rounded to ``cfg.param_dtype`` as it is drawn
+    (the reference ignores ``param_dtype`` and keeps f32): a model too
+    large for f32 on one card is drawn in bf16, leaf by leaf, with the
+    values an f32 draw cast to bf16 would have."""
     return Transformer(cfg, weights_from_tree(
-        cfg, init_tree(model_defs(cfg), generator, device)))
+        cfg, init_tree(model_defs(cfg), generator, device, cfg.param_dtype)))

@@ -5,8 +5,10 @@ left-padded to its longest prompt (pad positions are masked end-to-end via
 ``valid_from``), prefilled in one batched call, then decoded in lockstep with
 greedy sampling.  A slot whose request finishes keeps decoding garbage until
 the wave drains (its output is truncated) — the fixed-shape trade-off that
-keeps every step the same batch shape.  Each wave allocates one KV cache on
-the model's device and decodes into it in place.
+keeps every step the same batch shape.  Each wave allocates one cache (KV,
+or MLA's latent) on the model's device and decodes into it in place.  An
+MoE layer routes the pads too, and its capacity follows the call's token
+count (a wave's prefill, a decode step), as in the reference.
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ class ServeEngine:
     device its weights live on.  Construction casts the model's >= 2-D
     weights to the compute dtype in place: every forward casts them so at
     each use anyway, so the values are the same, and the f32 copies would
-    double the weights' memory and each decode step's weight reads."""
+    double the weights' memory and each decode step's weight reads.  A
+    module's ``keep_f32`` parameters (the MoE router, read in f32) stay
+    as they are."""
 
     def __init__(self, cfg: ModelConfig, model, *, batch_slots: int = 8,
                  capacity: int = 512):
@@ -62,9 +66,11 @@ class ServeEngine:
         self.device = model.embed["embedding"].device
         cdt = getattr(torch, cfg.dtype)
         with torch.no_grad():
-            for p in model.parameters():
-                if p.ndim >= 2 and p.dtype != cdt:
-                    p.data = p.data.to(cdt)
+            for mod in model.modules():
+                keep = getattr(mod, "keep_f32", ())
+                for name, p in mod.named_parameters(recurse=False):
+                    if p.ndim >= 2 and p.dtype != cdt and name not in keep:
+                        p.data = p.data.to(cdt)
         self._prefill = steps.make_prefill_step(cfg, capacity)
         self._decode = steps.make_decode_step(cfg)
         self.steps_executed = 0

@@ -45,9 +45,9 @@ from repro_torch.models import steps, transformer as tr
 
 DENSE = ["phi4-mini-3.8b", "mistral-nemo-12b", "minitron-8b",
          "starcoder2-3b", "musicgen-medium"]
-UNPORTED = {"deepseek-v2-236b": "MLA", "llama4-maverick-400b-a17b": "MoE",
-            "llama-3.2-vision-90b": "cross-attention",
-            "zamba2-1.2b": "mamba2", "xlstm-350m": "mlstm"}
+UNPORTED = {"llama-3.2-vision-90b": r"cross-attention.*item 6\.4",
+            "zamba2-1.2b": r"mamba2.*item 6\.5",
+            "xlstm-350m": r"mlstm.*item 6\.5"}
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
