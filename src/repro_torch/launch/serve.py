@@ -1,10 +1,14 @@
-"""Serving launcher: batched generation with an --arch backbone of the zoo
-(the dense GQA configs, llama4-maverick's MoE, deepseek-v2's MLA + MoE).
+"""Serving launcher: batched generation with any --arch backbone of the
+zoo (dense GQA, MoE, MLA, the SSM blocks of zamba2 and xlstm,
+llama-vision's cross layers, which attend to no memory here, as in the
+reference).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --smoke --requests 16 --max-new 12 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-236b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --full                                                # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --full --requests 16 --max-new 12 --batch-slots 8     # on the card
 

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \
       --smoke --steps 12 --device cpu --checkpoint-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
+      --full --steps 6                                      # on the card
 
 Restarts resume from the latest checkpoint automatically; ``--fail-at N``
 injects a crash at step N to exercise the restart path.  Checkpoints hold

@@ -1,6 +1,5 @@
-"""Attention blocks: GQA with RoPE and DeepSeek-V2's multi-head latent
-attention (MLA); cross-attention waits for its slice (ROADMAP queue 1, item
-6.4) and raises ``NotImplementedError``.
+"""Attention blocks: GQA with RoPE, DeepSeek-V2's multi-head latent
+attention (MLA), and the gated cross-attention of the VLM layers.
 
 GQA and MLA run in two modes, as in the reference:
   * full sequence (no cache): causal attention over the input;
@@ -8,6 +7,8 @@ GQA and MLA run in two modes, as in the reference:
     are written into a fixed-capacity bf16 cache in place at ``index`` and
     the queries attend over the whole capacity, unwritten slots masked by
     the causal offset (prefill and decode).
+Cross-attention keeps no state: each call attends, without a mask, over
+the memory it is given.
 """
 
 from __future__ import annotations
@@ -21,11 +22,6 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import ParamDef, ParamTree, rms_norm
 
 
-def not_ported(what: str, item: str = "6") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-
-
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -37,13 +33,15 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S).  The half-split rotation (not
-    interleaved), angles in f32."""
+    interleaved), angles in f32, the rotation in f32 (f64 under f64
+    compute)."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
     angles = positions[..., None].float() * freqs          # (B, S, D/2)
     cos = torch.cos(angles)[..., None, :]                  # (B, S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(torch.promote_types(x.dtype, torch.float32)),
+                         2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -77,7 +75,8 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int, softcap: float = 0.0,
     g = h // hkv
     q = q.reshape(b, s, hkv, g, d)
     sdt = scores_dtype or torch.float32
-    scores = torch.einsum("bshgd,bthd->bhgst", q.float(), k.float())
+    hi = torch.promote_types(q.dtype, torch.float32)    # f64 under f64
+    scores = torch.einsum("bshgd,bthd->bhgst", q.to(hi), k.to(hi))
     scores = scores / math.sqrt(d)
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
@@ -297,12 +296,48 @@ class MLAAttention(torch.nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# not ported yet
+# Cross-attention (VLM / audio memory)
 # ---------------------------------------------------------------------------
 
-def cross_attn_defs(cfg: ModelConfig):
-    raise not_ported("cross-attention", "6.4")
+def cross_attn_defs(cfg: ModelConfig) -> ParamTree:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "wq": ParamDef((d, cfg.num_heads, hd), ("fsdp", "tp", None)),
+        "wk": ParamDef((d, cfg.num_kv_heads, hd), ("fsdp", "tp", None)),
+        "wv": ParamDef((d, cfg.num_kv_heads, hd), ("fsdp", "tp", None)),
+        "wo": ParamDef((cfg.num_heads, hd, d), ("tp", None, "fsdp")),
+        # 0 at init: a fresh cross layer adds nothing to the stream
+        "gate": ParamDef((), (), init="zeros"),
+    }
 
 
-def cross_attention(*args, **kwargs):
-    raise not_ported("cross-attention", "6.4")
+def cross_attention(params, x, memory, cfg: ModelConfig,
+                    compute_dtype=torch.bfloat16):
+    """Non-causal GQA of x (B, S, D) over ``memory`` (B, M, D), the
+    precomputed patch or frame embeddings; the output scaled by
+    tanh(gate), the gate read in f32."""
+    mem = memory.to(compute_dtype)
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(compute_dtype))
+    k = torch.einsum("bmd,dhk->bmhk", mem, params["wk"].to(compute_dtype))
+    v = torch.einsum("bmd,dhk->bmhk", mem, params["wv"].to(compute_dtype))
+    out = _sdpa(q, k, v, causal=False, q_offset=0)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(compute_dtype))
+    return torch.tanh(params["gate"].float()).to(out.dtype) * out
+
+
+class CrossAttention(torch.nn.Module):
+    """``cross_attention`` over parameters named and shaped as the
+    reference's cross ``attn`` subtree (``gate`` a 0-d parameter)."""
+
+    def __init__(self, cfg: ModelConfig, weights: dict,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        for name in ("wq", "wk", "wv", "wo", "gate"):
+            setattr(self, name, torch.nn.Parameter(weights[name]))
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x, memory):
+        params = {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo,
+                  "gate": self.gate}
+        return cross_attention(params, x, memory, self.cfg, self.compute_dtype)

@@ -87,19 +87,39 @@ def stack_defs(defs: ParamTree, n: int) -> ParamTree:
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The norm in f32, or in f64 under f64 compute."""
     dt = x.dtype
-    x = x.float()
+    hi = torch.promote_types(dt, torch.float32)
+    x = x.to(hi)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * weight.float()).to(dt)
+    return (x * weight.to(hi)).to(dt)
+
+
+class _Silu(torch.autograd.Function):
+    """g * logistic(g), the logistic op by op as the reference's graph has
+    it (it lowers to 1 / (1 + exp(-g))), each op rounded to g's dtype: a
+    fused silu rounds once, and in bf16 the port would no longer equal the
+    reference run op by op.  The backward is the logistic's own, s (1 - s),
+    as the reference differentiates it: differentiating the ops instead
+    gives 0 * exp(-g) = 0 * inf = NaN below g = -88."""
+
+    @staticmethod
+    def forward(ctx, g):
+        s = torch.reciprocal(1 + torch.exp(-g))
+        ctx.save_for_backward(g, s)
+        return g * s
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, s = ctx.saved_tensors
+        return grad * s + grad * g * (s * (1 - s))
 
 
 def silu(g: torch.Tensor) -> torch.Tensor:
-    """silu op by op as the reference's graph has it (its logistic lowers
-    to 1 / (1 + exp(-g))), each op rounded to g's dtype: a fused silu
-    rounds once, and in bf16 the port would no longer equal the reference
-    run op by op."""
-    return g * torch.reciprocal(1 + torch.exp(-g))
+    """silu with the reference's rounding and its finite gradient
+    (``_Silu``)."""
+    return _Silu.apply(g)
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down, compute_dtype) -> torch.Tensor:

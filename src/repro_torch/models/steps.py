@@ -30,11 +30,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(model, batch: dict, params: dict = None):
     """(ce + aux, {"ce", "aux"}) of ``model`` on ``batch`` (``tokens``,
-    ``labels``); with ``params`` (name -> tensor) the model runs on those
-    tensors in place of its own parameters."""
-    tokens = batch["tokens"]
-    logits, _, aux = (model(tokens) if params is None
-                      else functional_call(model, params, (tokens,)))
+    ``labels``, and ``memory`` for the cross layers where the batch has
+    one); with ``params`` (name -> tensor) the model runs on those tensors
+    in place of its own parameters."""
+    args, kw = (batch["tokens"],), {"memory": batch.get("memory")}
+    logits, _, aux = (model(*args, **kw) if params is None
+                      else functional_call(model, params, args, kw))
     ce = cross_entropy(logits, batch["labels"])
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -49,7 +50,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     then divided by the count), ``grads_dtype="bfloat16"`` (the gradient
     is taken with respect to bf16 copies of the parameters whose reference
     leaf is f32 and at least 2-D), ``grad_compression`` applied before the
-    update.
+    update.  A parameter the forward does not reach (``frontend_proj``
+    under token ids, ``memory_proj`` without a memory) gets a zero
+    gradient, as ``jax.grad`` gives it.
     """
     lr_fn = adamw.cosine_schedule(tcfg)
     leaves = transformer.reference_leaves(cfg)
@@ -81,7 +84,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                     metrics = {k: metrics[k] + met_i[k] for k in metrics}
         grads = {}
         for n, t in diff.items():
-            grads[n], t.grad = t.grad, None
+            grads[n] = torch.zeros_like(t) if t.grad is None else t.grad
+            t.grad = None
         if nmb:
             loss = loss / nmb
             metrics = {k: v / nmb for k, v in metrics.items()}
@@ -110,16 +114,20 @@ def _compress(grads: dict, names: list, mode: str) -> None:
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: int):
-    """prefill_step(model, tokens[, valid_from, positions]) -> (state,
-    last_logits); ``state`` is a KV cache of ``capacity`` slots allocated
-    on the tokens' device."""
+    """prefill_step(model, tokens[, valid_from, positions, memory]) ->
+    (state, last_logits); ``state`` is the decode state from
+    ``transformer.init_state`` (a KV cache of ``capacity`` slots, the SSM
+    layers' zeros) on the tokens' device.  ``memory`` feeds the cross
+    layers (the reference's ``prefill_step`` takes it third; here it is a
+    keyword, after the serving engine's positional arguments)."""
 
     @torch.inference_mode()
-    def prefill_step(model, tokens, valid_from=None, positions=None):
+    def prefill_step(model, tokens, valid_from=None, positions=None,
+                     memory=None):
         b = tokens.shape[0]
         state = transformer.init_state(cfg, b, capacity, tokens.device)
         logits, new_state, _ = model(tokens, positions=positions, state=state,
-                                     valid_from=valid_from)
+                                     valid_from=valid_from, memory=memory)
         return new_state, logits[:, -1]
 
     return prefill_step
@@ -128,7 +136,8 @@ def make_prefill_step(cfg: ModelConfig, capacity: int):
 def make_decode_step(cfg: ModelConfig):
     """decode_step(model, state, token, pos[, valid_from]) -> (state,
     logits); token: (B, 1) int; pos: (B, 1) positions.  The state's KV
-    cache is written in place."""
+    cache is written in place.  As the reference's, it passes no memory:
+    a decode step's cross layers attend to zeros."""
 
     @torch.inference_mode()
     def decode_step(model, state, token, pos, valid_from=None):

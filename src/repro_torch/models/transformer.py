@@ -1,4 +1,4 @@
-"""Causal LM of the model zoo: GQA and MLA attention, dense and MoE FFNs.
+"""Causal LM of the model zoo: every block kind and FFN of the reference.
 
 The parameter tree keeps the reference's layout: the layer stack is
 decomposed into *segments*, a prefix of ``num_layers % period`` layers and
@@ -10,11 +10,12 @@ between the two layouts.  ``scan_layers`` changes nothing; ``remat``
 checkpoints each block when gradients are taken (training), and changes
 nothing at inference.
 
-``attn`` (GQA) and ``mla`` blocks with a dense (SwiGLU) or MoE FFN are
-ported, for serving and training; cross-attention and the modality
-frontend (ROADMAP queue 1, item 6.4) and the SSM blocks (item 6.5) raise
-``NotImplementedError``.  The forward returns the MoE layers' aux losses
-summed as the reference sums them.
+``attn`` (GQA) and ``mla`` blocks with a dense (SwiGLU) or MoE FFN, the
+gated ``cross_attn`` blocks over a memory, and the SSM blocks (``mamba2``,
+``mlstm``, ``slstm``: no FFN) serve and train; the modality frontend feeds
+(B, S, F) embeds through ``frontend_proj`` in place of token ids.  The
+forward returns the MoE layers' aux losses summed as the reference sums
+them.
 """
 
 from __future__ import annotations
@@ -33,12 +34,21 @@ from torch.utils.checkpoint import (
 from repro_torch.common.config import BlockKind, FFNKind, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     DenseFFN, ParamDef, ParamTree, RMSNorm, count_tree, dense_ffn_defs,
     embedding_defs, init_tree, softcap, stack_defs, tree_leaves, tree_map,
 )
 
-_SSM = (BlockKind.MAMBA2.value, BlockKind.SLSTM.value, BlockKind.MLSTM.value)
+# the SSM kinds: (parameter defs, state defs, mixer module)
+_SSM = {
+    BlockKind.MAMBA2.value: (ssm_lib.mamba2_defs, ssm_lib.mamba2_state_defs,
+                             ssm_lib.Mamba2Mixer),
+    BlockKind.SLSTM.value: (ssm_lib.slstm_defs, ssm_lib.slstm_state_defs,
+                            ssm_lib.SLSTMMixer),
+    BlockKind.MLSTM.value: (ssm_lib.mlstm_defs, ssm_lib.mlstm_state_defs,
+                            ssm_lib.MLSTMMixer),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -55,7 +65,7 @@ def block_defs(cfg: ModelConfig, kind: str, ffn: str) -> ParamTree:
     elif kind == BlockKind.CROSS_ATTN.value:
         defs["attn"] = attn.cross_attn_defs(cfg)
     elif kind in _SSM:
-        raise attn.not_ported(f"the {kind} block (models/ssm.py)", "6.5")
+        defs["mixer"] = _SSM[kind][0](cfg)
     else:
         raise ValueError(kind)
     if ffn == FFNKind.DENSE.value and cfg.d_ff > 0:
@@ -75,8 +85,7 @@ def block_state_defs(cfg: ModelConfig, kind: str, batch: int, capacity: int) -> 
     if kind == BlockKind.CROSS_ATTN.value:
         return {}
     if kind in _SSM:
-        raise attn.not_ported(f"the {kind} block's state (models/ssm.py)",
-                              "6.5")
+        return _SSM[kind][1](cfg, batch)
     raise ValueError(kind)
 
 
@@ -87,20 +96,28 @@ def _sub(weights: dict, prefix: str) -> dict:
 
 class Block(nn.Module):
     """Pre-norm residual block of the layer's ``(kind, ffn)``: ``ln1`` +
-    GQA (``attn``) or MLA (``mla``) attention, then ``ln2`` + the dense or
-    MoE FFN where the layer has one.  ``weights`` is keyed by the block's
-    parameter names (``ln1.weight``, ``attn.wq``, ``ffn.router``, ...).
-    The forward returns (x, new_state, aux), aux the MoE FFN's loss (None
-    for any other block: the reference's zero), as the reference's
-    ``block_forward``."""
+    GQA (``attn``), MLA (``mla``) or cross-attention (``cross_attn``) as
+    ``attn``, or an SSM ``mixer``; then ``ln2`` + the dense or MoE FFN
+    where the layer has one.  ``weights`` is keyed by the block's
+    parameter names (``ln1.weight``, ``attn.wq``, ``mixer.in_proj``,
+    ``ffn.router``, ...).  The forward returns (x, new_state, aux), aux the
+    MoE FFN's loss (None for any other block: the reference's zero), as
+    the reference's ``block_forward``.  An SSM block's state is replaced
+    each call, not written in place; a cross block's is passed through."""
 
     def __init__(self, cfg: ModelConfig, kind: str, ffn: str, weights: dict,
                  compute_dtype: torch.dtype):
         super().__init__()
+        self.kind = kind
         self.ln1 = RMSNorm(weights["ln1.weight"], cfg.norm_eps)
-        attn_cls = {BlockKind.ATTN.value: attn.GQAAttention,
-                    BlockKind.MLA.value: attn.MLAAttention}[kind]
-        self.attn = attn_cls(cfg, _sub(weights, "attn."), compute_dtype)
+        if kind in _SSM:
+            self.mixer = _SSM[kind][2](cfg, _sub(weights, "mixer."),
+                                       compute_dtype)
+        else:
+            attn_cls = {BlockKind.ATTN.value: attn.GQAAttention,
+                        BlockKind.MLA.value: attn.MLAAttention,
+                        BlockKind.CROSS_ATTN.value: attn.CrossAttention}[kind]
+            self.attn = attn_cls(cfg, _sub(weights, "attn."), compute_dtype)
         self.ffn = None
         if "ln2.weight" in weights:
             self.ln2 = RMSNorm(weights["ln2.weight"], cfg.norm_eps)
@@ -109,8 +126,21 @@ class Block(nn.Module):
                         if ffn == FFNKind.MOE.value
                         else DenseFFN(ffn_w, compute_dtype))
 
-    def forward(self, x, positions, state=None, valid_from=None):
-        h, new_state = self.attn(self.ln1(x), positions, state, valid_from)
+    def forward(self, x, positions, state=None, valid_from=None, valid=None,
+                memory=None):
+        """valid: (B, S) bool of a padded prefill (the SSM recurrences'
+        identity steps); memory: (B, M, d) for a cross block, zeros
+        (B, 1, d) when None, as in the reference."""
+        h = self.ln1(x)
+        new_state = state
+        if self.kind == BlockKind.CROSS_ATTN.value:
+            if memory is None:
+                memory = x.new_zeros((x.shape[0], 1, x.shape[-1]))
+            h = self.attn(h, memory)
+        elif self.kind in _SSM:
+            h, new_state = self.mixer(h, state, valid)
+        else:
+            h, new_state = self.attn(h, positions, state, valid_from)
         x = x + h
         aux = None
         if isinstance(self.ffn, moe_lib.MoEFFN):
@@ -300,8 +330,8 @@ def tree_from_weights(cfg: ModelConfig, weights: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def state_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
-    """Per-layer decode state (KV cache) as the reference lays it out:
-    ``(shape, logical, dtype)`` leaves, scanned ones stacked."""
+    """Per-layer decode state (KV cache, SSM state) as the reference lays
+    it out: ``(shape, logical, dtype)`` leaves, scanned ones stacked."""
     segs = plan_segments(cfg)
     out = {"prefix": {str(i): block_state_defs(cfg, k, batch, capacity)
                       for i, (k, _) in enumerate(segs.prefix)}}
@@ -319,7 +349,9 @@ def state_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
 
 def init_state(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
     """A zeroed decode state on ``device``: one dict a layer, in layer
-    order (``state_defs``' leaves unstacked), ``index`` a Python int."""
+    order (``state_defs``' leaves unstacked), ``index`` a Python int.  An
+    SSM layer's zeros are the prefill's initial state (mLSTM's m = 0,
+    sLSTM's n = 0), as the reference's ``init_state``."""
     def mk(sd):
         return 0 if sd[0] == () else torch.zeros(
             sd[0], dtype=getattr(torch, sd[2]), device=device)
@@ -334,15 +366,13 @@ def init_state(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
 
 class Transformer(nn.Module):
     """The embedding, the blocks in layer order, ``ln_f`` and the
-    unembedding (the embedding's transpose when tied).  ``weights`` is
-    keyed by parameter name (``weights_from_tree``)."""
+    unembedding (the embedding's transpose when tied); with a modality
+    frontend, ``frontend_proj`` (F, d) and, with cross layers, the
+    ``memory_proj`` (F, d).  ``weights`` is keyed by parameter name
+    (``weights_from_tree``)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict):
         super().__init__()
-        model_defs(cfg)                       # raises for unported kinds
-        if cfg.frontend_embed_dim:
-            raise attn.not_ported("the modality frontend (frontend_embed_dim)",
-                                 "6.4")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.dtype)
         self.embed = nn.ParameterDict(
@@ -355,34 +385,56 @@ class Transformer(nn.Module):
         self.ln_f = RMSNorm(weights["ln_f.weight"], cfg.norm_eps)
         self.unembed = (None if cfg.tie_embeddings
                         else nn.Parameter(weights["unembed"]))
+        self.frontend_proj = self.memory_proj = None
+        if cfg.frontend_embed_dim:
+            self.frontend_proj = nn.Parameter(weights["frontend_proj"])
+            if cfg.cross_attn_every > 0:
+                self.memory_proj = nn.Parameter(weights["memory_proj"])
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                state: Optional[list] = None, valid_from=None):
-        """tokens: (B, S) int.  Returns (logits f32 (B, S, V), new_state,
-        aux_loss), the aux loss summed over the MoE layers as the reference
-        sums it (the prefix's in order, then the scanned periods' sums).
-        With ``state`` (``init_state``) each layer writes its cache in
-        place.  valid_from: optional (B,) int — positions below
-        it are left-pads (serving batches), masked in attention.  With
+                state: Optional[list] = None, valid_from=None,
+                memory: Optional[torch.Tensor] = None):
+        """tokens: (B, S) int, or (B, S, F) frontend embeds.  Returns
+        (logits f32 (B, S, V), new_state, aux_loss), the aux loss summed
+        over the MoE layers as the reference sums it (the prefix's in
+        order, then the scanned periods' sums).  With ``state``
+        (``init_state``) each attention layer writes its cache in place
+        and each SSM layer returns a new state.  valid_from: optional (B,)
+        int — positions below it are left-pads (serving batches), masked
+        in attention and identity in the SSM recurrences (a prefill's;
+        a decode step's token is always real).  memory: optional (B, M, F)
+        (projected once by ``memory_proj``; (B, M, d) without one) for the
+        cross layers, which attend to zeros without it.  With
         ``cfg.remat``, when gradients are taken and there is no state, each
         block is checkpointed (``_remat``)."""
         cdt = self.compute_dtype
         emb = self.embed["embedding"]
-        x = nn.functional.embedding(tokens, emb).to(cdt)
+        if tokens.ndim == 3:
+            x = torch.einsum("bsf,fd->bsd", tokens.to(cdt),
+                             self.frontend_proj.to(cdt))
+        else:
+            x = nn.functional.embedding(tokens, emb).to(cdt)
+        if memory is not None and self.memory_proj is not None:
+            memory = torch.einsum("bmf,fd->bmd", memory.to(cdt),
+                                  self.memory_proj.to(cdt))
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        valid = None
+        if valid_from is not None and s > 1:
+            valid = (torch.arange(s, device=x.device)[None, :]
+                     >= valid_from[:, None])
         remat = self.cfg.remat and state is None and torch.is_grad_enabled()
         new_state = [] if state is not None else None
         auxes = []
         for i, blk in enumerate(self.layers):
             if remat:
                 x, st, aux = _remat(blk, self.cfg.remat_policy, x, positions,
-                                    valid_from)
+                                    valid_from, valid, memory)
             else:
                 x, st, aux = blk(x, positions,
                                  state[i] if state is not None else None,
-                                 valid_from)
+                                 valid_from, valid, memory)
             auxes.append(aux)
             if state is not None:
                 new_state.append(st)
@@ -431,7 +483,7 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(blk: Block, policy: str, x, positions, valid_from):
+def _remat(blk: Block, policy: str, x, positions, valid_from, valid, memory):
     """``blk`` under activation checkpointing, as the reference's
     ``jax.checkpoint`` a block: ``nothing_saveable`` keeps only the block's
     inputs and recomputes the rest in the backward pass; any other policy
@@ -439,7 +491,7 @@ def _remat(blk: Block, policy: str, x, positions, valid_from):
     Returns the block's (x, state, aux)."""
     kw = {} if policy == "nothing_saveable" else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _save_dots)}
-    return checkpoint(blk, x, positions, None, valid_from,
+    return checkpoint(blk, x, positions, None, valid_from, valid, memory,
                       use_reentrant=False, **kw)
 
 

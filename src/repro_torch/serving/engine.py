@@ -6,9 +6,12 @@ left-padded to its longest prompt (pad positions are masked end-to-end via
 greedy sampling.  A slot whose request finishes keeps decoding garbage until
 the wave drains (its output is truncated) — the fixed-shape trade-off that
 keeps every step the same batch shape.  Each wave allocates one cache (KV,
-or MLA's latent) on the model's device and decodes into it in place.  An
-MoE layer routes the pads too, and its capacity follows the call's token
-count (a wave's prefill, a decode step), as in the reference.
+or MLA's latent) on the model's device and decodes into it in place; an
+SSM layer's state is replaced at each step, its left pads identity steps
+of the recurrence.  An MoE layer routes the pads too, and its capacity
+follows the call's token count (a wave's prefill, a decode step), as in
+the reference.  No memory reaches the cross layers (the reference's
+engine passes none).
 """
 
 from __future__ import annotations
@@ -51,11 +54,12 @@ def pad_wave(prompts: Sequence[np.ndarray], slots: int):
 class ServeEngine:
     """Serves ``model`` (a ``models.transformer.Transformer``) on the
     device its weights live on.  Construction casts the model's >= 2-D
-    weights to the compute dtype in place: every forward casts them so at
-    each use anyway, so the values are the same, and the f32 copies would
-    double the weights' memory and each decode step's weight reads.  A
-    module's ``keep_f32`` parameters (the MoE router, read in f32) stay
-    as they are."""
+    weights to the compute dtype in place, where the forward reads them in
+    that dtype (a cast at each use), so the values it computes with are the
+    same, and the f32 copies would double the weights' memory and each
+    decode step's weight reads.  A weight read in f32 is named in its
+    module's ``keep_f32`` (the MoE router; sLSTM's recurrence ``r`` and
+    ``b``) and stays as it is."""
 
     def __init__(self, cfg: ModelConfig, model, *, batch_slots: int = 8,
                  capacity: int = 512):
