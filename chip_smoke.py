@@ -182,7 +182,21 @@ Phases, in order; any failure exits non-zero before the last line:
      read, p, m, v written: 28 B a parameter), the card's busy share of a
      step (profiler, one step) beside the host's time to enqueue one, and
      peak memory against the 61.38 GB of state; then zamba2-1.2b and
-     xlstm-350m at full size the same way (state 21.64 and 6.49 GB).
+     xlstm-350m at full size the same way (state 21.64 and 6.49 GB);
+ 11. the model mesh and the expert-parallel MoE, over worlds of ranks
+     sharing the card through gloo (``launch/ep_world.py``), none of
+     which may launch a join kernel: (a) the two MoE smoke configs in
+     float32 at (1, 2) and (2, 2), card against CPU in one world: a
+     prefill of 8 x 64 (``moe_ffn_ep``), 8 decode steps
+     (``moe_ffn_ep_replicated_dsharded``), one train step with
+     ``use_ep``, ``moe_ffn_ep_replicated`` called directly, and on the
+     card the block's decode against ``moe_ffn_dense``; (b)
+     deepseek-v2-236b at full width (4 of 60 layers, bf16) over (1, 2)
+     against world 1's ``moe_ffn_dense`` and against world 1 with its
+     expert sums in the EP decode's order (``_ep_full_width``; its ranks
+     run ``_ep_full_width_rank``, so the ranks import this file); (c) a
+     world-1 checkpoint restored onto (1, 2), and ``launch.train --mesh
+     single`` refused at world 1.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -192,14 +206,15 @@ Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` from the main path -- the compaction's from the ring's main
 path, where kernels A and B give theirs as ``launches_ring`` -- and
 ``launches_serving`` per serving path, ``launches_zoo``,
-``launches_moe``, ``launches_ssm`` and ``launches_train`` 0), and as its
-last line
+``launches_moe``, ``launches_ssm``, ``launches_train`` and
+``launches_model_mesh`` 0), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -273,6 +288,7 @@ def main():
     ctx.phase9_moe()
     ctx.phase9_ssm()
     ctx.phase10_train()
+    ctx.phase11_model_mesh()
     ctx.serving_launches()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -3161,6 +3177,606 @@ class Smoke:
         log(f"phase 10 (c): {arch} full width, train steps ({self.smi}): "
             + json.dumps(row))
         return row
+
+    # -- phase 11: the model mesh and expert-parallel MoE ------------------
+    def phase11_model_mesh(self):
+        """The MoE FFN expert-parallel over a model mesh of ranks sharing
+        the card (gloo, ``launch/ep_world.py``): (a) the two MoE smoke
+        configs at (1, 2) and (2, 2), card against CPU in one world; (b)
+        deepseek-v2-236b at full width (4 of 60 layers) over (1, 2)
+        against world 1's ``moe_ffn_dense``; (c) a world-1 checkpoint
+        restored onto (1, 2) and ``launch.train --mesh single`` at world
+        1.  No rank launches a join kernel (each rank's counts, read as
+        its job ends, and this process's)."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.reset_launches()
+        self.ep_launches = []
+        self.ep = {"smoke": self._ep_smoke()}
+        self.ep["full_width"] = self._ep_full_width()
+        self.ep["checkpoint"] = self._ep_checkpoint()
+        launches = [self.read_launches()] + self.ep_launches
+        check(not any(v for l in launches for v in l.values()),
+              f"phase 11 launched a join kernel: {launches}")
+        for entry in self.kernels:
+            entry["launches_model_mesh"] = 0
+        self.ep["wall_s"] = time.perf_counter() - t0
+        log("phase 11: the model mesh launches none of the three kernels "
+            f"(counts of this process and of {len(launches) - 1} ranks "
+            "all 0); routing, all-to-alls, gathers and expert GEMMs are "
+            "plain PyTorch and gloo, as the reference's are jnp and XLA "
+            "collectives")
+        torch.cuda.empty_cache()
+        log(f"phase 11: model mesh ok ({self.ep['wall_s']:.1f} s, "
+            f"{self.smi})")
+
+    def _world(self, shape, job, payload, timeout=600):
+        from repro_torch.launch.ep_world import run_world
+        return run_world(shape, job, payload, device="cuda", timeout=timeout,
+                         launches=self.ep_launches)
+
+    def _ep_smoke(self):
+        """(a) For each MoE smoke config in float32 (capacity 1.25) and
+        each world (1, 2), (2, 2): in one world, on the card and then on
+        the CPU with the same weights (drawn on the CPU from seed 0), a
+        prefill of 8 x 64 tokens (``moe_ffn_ep``), 8 teacher-forced decode
+        steps (``moe_ffn_ep_replicated_dsharded``; fsdp ``("data",)``) and
+        one ``make_train_step(use_ep=True)`` step on the same tokens;
+        ``moe_ffn_ep_replicated`` called directly; and on the card
+        ``moe_block_sharded`` at a decode of 8 tokens with a capacity at
+        which nothing drops (E / k).  Each rank: router ids of every call
+        equal; prefill and decode logits within 1e-4 of max |logit| (3e-2
+        where a bf16 cache element rounded the other way); loss within
+        1e-5 relative, ``lr`` equal, ``grad_norm`` 1e-3, every leaf of
+        ``m`` within 1e-3 of its max; the direct call's output within
+        1e-5 of max and its ids equal; the block's decode within 1e-5 of
+        max |out| of ``moe_ffn_dense`` on the card (f32; at (2, 2) the
+        d_model contraction is split over ``fsdp`` and its parts summed),
+        its ids equal and nothing dropped."""
+        np = self.np
+        rows = {}
+        rng = np.random.default_rng(11)
+        block_rng = np.random.default_rng(13)
+        for shape in ((1, 2), (2, 2)):
+            jobs, keys, blocks = [], [], {}
+            for arch in ZOO_MOE:
+                from repro_torch.configs import get_smoke
+                cfg = get_smoke(arch)
+                toks = rng.integers(0, cfg.vocab_size, (8, 72))
+                model = {"arch": arch, "dtype": "float32",
+                         "prompt": toks[:, :64], "decode": toks[:, 64:],
+                         "capacity": 80, "train": {
+                             "tokens": toks[:, :64],
+                             "labels": toks[:, 1:65]}}
+                rep = self._ep_replicated_payload(arch, rng)
+                for dev in ("cuda", "cpu"):
+                    jobs += [("model", dict(model, device=dev)),
+                             ("ep_fn", dict(rep, device=dev))]
+                    keys += [(arch, "model", dev), (arch, "rep", dev)]
+                mo = cfg.moe
+                blocks[arch] = dict(
+                    rep, fn="block", device="cuda",
+                    capacity_factor=mo.num_experts / mo.top_k,
+                    x=block_rng.normal(size=(8, 1, cfg.d_model)).astype(
+                        np.float32))
+                jobs.append(("ep_fn", blocks[arch]))
+                keys.append((arch, "block", "cuda"))
+            t0 = time.perf_counter()
+            ranks = self._world(shape, "many", {"jobs": jobs})
+            wall = time.perf_counter() - t0
+            for arch in ZOO_MOE:
+                rows[f"{arch} {shape}"] = self._ep_compare(
+                    arch, shape, keys, ranks, wall)
+                rows[f"{arch} {shape}"]["block_decode_vs_dense"] = \
+                    self._ep_block_vs_dense(
+                        arch, shape, blocks[arch],
+                        [res[keys.index((arch, "block", "cuda"))]
+                         for res in ranks])
+        log(f"phase 11 (a): EP card == cpu, 2 smoke configs x 2 worlds, "
+            f"f32 ({self.smi}): " + json.dumps(rows))
+        return rows
+
+    def _ep_replicated_payload(self, arch, rng):
+        """``moe_ffn_ep_replicated`` on the smoke config's MoE weights
+        (drawn from seed 0 on the CPU) and 8 x 4 tokens."""
+        import dataclasses
+        np, torch = self.np, self.torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.models import moe
+        from repro_torch.models.layers import init_tree, tree_map
+        cfg = get_smoke(arch)
+        params = tree_map(lambda t: t.numpy(), init_tree(
+            moe.moe_defs(dataclasses.replace(cfg, dtype="float32")),
+            torch.Generator().manual_seed(0), "cpu"))
+        return {"arch": arch, "dtype": "float32", "fn": "replicated",
+                "params": params, "x": rng.normal(
+                    size=(8, 4, cfg.d_model)).astype(np.float32)}
+
+    def _ep_block_vs_dense(self, arch, shape, pay, ranks):
+        """Each rank's ``moe_block_sharded`` decode (``pay``) against
+        ``moe_ffn_dense`` on the card on the same weights and tokens:
+        ids equal, nothing dropped, within 1e-5 of max |out|."""
+        import dataclasses
+        np, torch = self.np, self.torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.models import moe
+        from repro_torch.models.layers import tree_map
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=pay["capacity_factor"]))
+        stats = {}
+        dense = moe.moe_ffn_dense(
+            tree_map(lambda a: torch.as_tensor(a, device=self.dev),
+                     pay["params"]),
+            torch.as_tensor(pay["x"], device=self.dev), cfg, torch.float32,
+            stats)[0].cpu().numpy()
+        ids = stats["ids"].cpu().numpy()
+        errs = [float(np.abs(r["out"] - dense).max() / np.abs(dense).max())
+                for r in ranks]
+        check(all(np.array_equal(r["ids"], ids) and r["dropped"] == 0
+                  for r in ranks) and max(errs) <= 1e-5,
+              f"{arch} {shape}: moe_block_sharded decode on the card vs "
+              f"moe_ffn_dense {errs} of max |out|, dropped "
+              f"{[r['dropped'] for r in ranks]}")
+        return {"err": errs, "bit_equal": [bool(np.array_equal(
+            r["out"], dense)) for r in ranks]}
+
+    def _ep_compare(self, arch, shape, keys, ranks, wall):
+        np = self.np
+        idx = {k: i for i, k in enumerate(keys)}
+        row = {"world_wall_s": round(wall, 2), "ranks": []}
+        for r, res in enumerate(ranks):
+            card, cpu = (res[idx[(arch, "model", d)]] for d in ("cuda", "cpu"))
+            rc, rh = (res[idx[(arch, "rep", d)]] for d in ("cuda", "cpu"))
+            ids_equal = all(np.array_equal(a, b) for a, b in
+                            zip(card["ids"], cpu["ids"]))
+            check(ids_equal and len(card["ids"]) == len(cpu["ids"]),
+                  f"{arch} {shape} rank {r}: router ids differ card vs cpu")
+            flips = sum(int((a[n] != b[n]).sum()) for a, b in
+                        zip(card["cache"], cpu["cache"]) for n in a)
+            tol = 1e-4 if flips == 0 else 3e-2
+            errs = {w: float(np.abs(card[w] - cpu[w]).max()
+                             / np.abs(cpu[w]).max())
+                    for w in ("prefill", "decode")}
+            check(max(errs.values()) <= tol, f"{arch} {shape} rank {r}: "
+                  f"logits card vs cpu {errs} > {tol} ({flips} cache flips)")
+            mc, mh = card["metrics"], cpu["metrics"]
+            loss_err = abs(mc["loss"] - mh["loss"]) / abs(mh["loss"])
+            gn_err = abs(mc["grad_norm"] - mh["grad_norm"]) / mh["grad_norm"]
+            m_err = max(float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
+                        for a, b in zip(_leaves(card["m"]), _leaves(cpu["m"])))
+            check(loss_err <= 1e-5 and mc["lr"] == mh["lr"]
+                  and gn_err <= 1e-3 and m_err <= 1e-3,
+                  f"{arch} {shape} rank {r}: train step card vs cpu loss "
+                  f"{loss_err} grad_norm {gn_err} m {m_err} lr {mc['lr']} "
+                  f"{mh['lr']}")
+            check(np.isfinite(mc["loss"]) and mc["aux"] > 0,
+                  f"{arch} {shape} rank {r}: train metrics {mc}")
+            rep_err = float(np.abs(rc["out"] - rh["out"]).max()
+                            / np.abs(rh["out"]).max())
+            check(np.array_equal(rc["ids"], rh["ids"]) and rep_err <= 1e-5,
+                  f"{arch} {shape} rank {r}: moe_ffn_ep_replicated card vs "
+                  f"cpu {rep_err}")
+            row["ranks"].append({
+                "ids_equal": ids_equal, "cache_flips": flips, "tol": tol,
+                **{f"{w}_err": e for w, e in errs.items()},
+                "dropped_prefill_decode": [sum(card["dropped"][
+                    :card["prefill_calls"]]), sum(card["dropped"][
+                        card["prefill_calls"]:])],
+                "loss_rel_err": loss_err, "grad_norm_rel_err": gn_err,
+                "m_err": m_err, "loss": mc["loss"], "aux": mc["aux"],
+                "replicated_err": rep_err,
+                "collectives_card": card["ledger"]["by_axis"],
+                "routes_card": card["ledger"]["by_route"]})
+        return row
+
+    def _ep_full_width(self):
+        """(b) deepseek-v2-236b at full width cut to 4 of 60 layers, bf16,
+        weights from seed 0 drawn on the card: world 1 (``moe_ffn_dense``,
+        in this process) and a (1, 2) world (``_ep_full_width_rank``: each
+        rank draws every leaf whole, in turn, keeping its 80 of the 160
+        experts of each MoE layer).  The same 8 x 52 prompt on both: a
+        prefill at the config's capacity (logits and dropped choices of
+        both paths recorded); in the EP world prefills at capacity factors
+        2, 4, 8 and 16 (the dropped choices at each recorded: the send
+        buffers' empty slots take local expert 0's slots, ROADMAP queue 3,
+        so no factor that fits the card drops nothing at 8 x 52); a short
+        prefill of 8 x 2 at the first factor of 40, 48, 64 at which no
+        rank drops (world 1 at E / k); then 12 decode steps at the
+        config's capacity from world 1's no-drop 8 x 52 prefill cache
+        (handed to the ranks), teacher-forced with world 1's greedy
+        tokens.
+
+        The witness of the decode's summation order: world 1 decodes the
+        same 12 steps again from the same cache with ``moe._combine``
+        adding a token's expert rows as the EP decode does (rank 0's
+        experts, then rank 1's, each partial in ascending order, then the
+        two partials: the psum).  Gates: every decode step's router ids,
+        every MoE layer, equal to that emulation's, and its logits within
+        3e-2 of max |logit| of them; the first MoE layer's ids equal world
+        1's at every call (its input is the same); against world 1 the
+        flips of both are counted (a later layer's input differs by the
+        order of the bf16 sums, and a flipped choice is a discrete change
+        no tolerance bounds) and the logits held to 3e-2 at every step
+        with no flip; the short prefill's logits to 3e-2 where none of its
+        choices flipped (its all-to-all path adds in arrival order, with
+        expert GEMMs of another shape: no emulation, flips counted).
+        Recorded: init s and peak memory a rank, decode ms a step (CUDA
+        events) against world 1's and against the bytes bound of one
+        rank's weights (and of both ranks', which share the card),
+        collective calls and bytes by axis and route."""
+        np, torch = self.np, self.torch
+        from repro_torch.models import moe, steps, transformer
+        arch, layers = "deepseek-v2-236b", 4
+        cfg = _full_width_cfg(arch, layers)
+        mo = cfg.moe
+        no_drop = mo.num_experts / mo.top_k
+        prompt = torch.as_tensor(np.random.default_rng(12).integers(
+            0, cfg.vocab_size, (8, 52)), device=self.dev)
+        # world 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = transformer.init_params(
+            cfg, torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        torch.cuda.synchronize()
+        w1 = {"init_s": time.perf_counter() - t0,
+              "init_peak_bytes": torch.cuda.max_memory_allocated()}
+        moes = self._moe_layers(model)
+        calls = []
+        hooks = [m.register_forward_hook(lambda mod, i, o: calls.append(
+            (mod.stats["ids"].cpu().numpy(), int(mod.stats["dropped"]))))
+            for m in moes]
+        prefill = steps.make_prefill_step(cfg, 68)
+        decode = steps.make_decode_step(cfg)
+        cfg_prefill = prefill(model, prompt)[1].float().cpu().numpy()
+        w1["config_prefill_dropped"] = sum(c[1] for c in calls)
+        _set_capacity(moes, no_drop)
+        calls.clear()
+        short = steps.make_prefill_step(cfg, 2)(model, prompt[:, :2])[1]
+        w1_short = (short.float().cpu().numpy(), [c[0] for c in calls])
+        state, last = prefill(model, prompt)
+        _set_capacity(moes, mo.capacity_factor)
+        w1_state = [{n: v if n == "index" else v.float().cpu().numpy()
+                     for n, v in layer.items()} for layer in state]
+
+        def decode_from_cache(toks):
+            st = _state_on(w1_state, self.dev)
+            calls.clear()
+            out = []
+            for j, tok in enumerate(toks):
+                pos = torch.full((8, 1), 52 + j, dtype=torch.int32,
+                                 device=self.dev)
+                st, lg = decode(model, st, tok, pos)
+                out.append(lg.float().cpu().numpy())
+            return out, [c[0] for c in calls], sum(c[1] for c in calls)
+
+        calls.clear()
+        toks, w1_dec = [], []
+        tok = steps.greedy_sample(last)[:, None]
+        for j in range(12):
+            toks.append(tok)
+            pos = torch.full((8, 1), 52 + j, dtype=torch.int32,
+                             device=self.dev)
+            state, lg = decode(model, state, tok, pos)
+            w1_dec.append(lg.float().cpu().numpy())
+            tok = steps.greedy_sample(lg)[:, None]
+        w1_ids = [c[0] for c in calls]
+        w1["decode_dropped"] = sum(c[1] for c in calls)
+        # the same steps with the EP decode's order of the expert sums
+        combine = moe._combine
+        moe._combine = _combine_in_ep_order(combine, mo.num_experts // 2)
+        try:
+            emu_dec, emu_ids, emu_dropped = decode_from_cache(toks)
+        finally:
+            moe._combine = combine
+        for h in hooks:
+            h.remove()
+        tok0, pos0 = toks[0], torch.full((8, 1), 52, dtype=torch.int32,
+                                         device=self.dev)
+        w1["decode_ms"] = self.time_ms(
+            lambda: decode(model, state, tok0, pos0), runs=5, reps=4)
+        w1["param_bytes"] = sum(p.numel() * p.element_size()
+                                for p in model.parameters())
+        del model, state, moes
+        torch.cuda.empty_cache()
+        # the (1, 2) world
+        t0 = time.perf_counter()
+        ranks = self._world((1, 2), _ep_full_width_rank, {
+            "arch": arch, "layers": layers, "seed": 0,
+            "prompt": prompt.cpu().numpy(), "capacity": 68,
+            "short_search": [40, 48, 64], "search": [2, 4, 8, 16],
+            "state": w1_state, "decode": torch.cat(toks, 1).cpu().numpy()},
+            timeout=900)
+        wall = time.perf_counter() - t0
+        mx = float(np.abs(cfg_prefill).max())
+        n_moe = len(w1_short[1])
+
+        def flips(a_ids, b_ids):
+            return [int((a != b).sum()) for a, b in zip(a_ids, b_ids)]
+
+        def by_step(f):
+            return [sum(f[j * n_moe:(j + 1) * n_moe]) for j in range(12)]
+
+        def rel(a, b):
+            return float(np.abs(a - b).max() / np.abs(b).max())
+
+        emu_vs_w1 = by_step(flips(emu_ids, w1_ids))
+        rows = []
+        for r, res in enumerate(ranks):
+            check(len(res["short_ids"]) == n_moe
+                  and len(res["ids"]) == len(w1_ids) == len(emu_ids)
+                  == 12 * n_moe, f"(1, 2) full width rank {r}: MoE calls")
+            # rank r holds the r-th half of a prefill's sequence (over
+            # model), every token at a decode
+            flips_short = flips(res["short_ids"],
+                                [b.reshape(8, 2, -1)[:, r] for b in
+                                 w1_short[1]])
+            flips_dec = flips(res["ids"], w1_ids)
+            flips_emu = flips(res["ids"], emu_ids)
+            check(flips_short[0] == 0 and all(
+                f == 0 for f in flips_dec[::n_moe]), f"(1, 2) full width "
+                f"rank {r}: first MoE layer's router ids differ from world "
+                f"1's: short prefill {flips_short}, decode {flips_dec}")
+            short_err = rel(res["short_prefill"], w1_short[0])
+            dec_errs = [rel(a, b) for a, b in zip(res["decode"], w1_dec)]
+            emu_errs = [rel(a, b) for a, b in zip(res["decode"], emu_dec)]
+            step_flips = by_step(flips_dec)
+            clean = [e for e, f in zip(dec_errs, step_flips) if f == 0]
+            check(sum(flips_emu) == 0 and max(emu_errs) <= 3e-2,
+                  f"(1, 2) full width rank {r}: decode against world 1 "
+                  f"in the EP order of sums: flips {by_step(flips_emu)}, "
+                  f"logits {emu_errs} of max |logit|")
+            check(all(e <= 3e-2 for e in clean)
+                  and (sum(flips_short) or short_err <= 3e-2),
+                  f"(1, 2) full width rank {r}: short prefill {short_err} "
+                  f"(flips {flips_short}) / decode {dec_errs} (flips "
+                  f"{step_flips}) of max |logit| from world 1")
+            rows.append({
+                "init_s": res["init_s"], "init_peak_bytes":
+                res["init_peak_bytes"], "peak_bytes": res["peak_bytes"],
+                "param_bytes": res["param_bytes"],
+                "short_prefill_err": short_err,
+                "short_prefill_flips_by_layer": flips_short,
+                "short_search_dropped": res["short_search"],
+                "decode_err_by_step": dec_errs,
+                "decode_flips_by_step": step_flips,
+                "decode_err_max_no_flip": max(clean) if clean else None,
+                "decode_vs_ep_order_err_by_step": emu_errs,
+                "decode_vs_ep_order_flips": sum(flips_emu),
+                "decode_vs_ep_order_bit_equal": all(
+                    np.array_equal(a, b) for a, b in
+                    zip(res["decode"], emu_dec)),
+                "config_prefill_err": rel(res["config_prefill"],
+                                          cfg_prefill),
+                "config_prefill_dropped": res["config_prefill_dropped"],
+                "search_dropped_8x52": res["search_dropped"],
+                "decode_dropped": sum(res["dropped"]),
+                "decode_ms": res["decode_ms"],
+                "decode_ms_median": statistics.median(res["decode_ms"]),
+                "decode_bound_ms_rank": 1e3 * res["param_bytes"] / self.bw,
+                "collectives": res["ledger"]})
+        both = 1e3 * sum(r["param_bytes"] for r in rows) / self.bw
+        out = {"world1": dict(w1, decode_bound_ms=1e3 * w1["param_bytes"]
+                              / self.bw, max_abs_logit=mx),
+               "world1_ep_order": {
+                   "flips_vs_world1_by_step": emu_vs_w1,
+                   "err_vs_world1_by_step": [rel(a, b) for a, b in
+                                             zip(emu_dec, w1_dec)],
+                   "decode_dropped": emu_dropped},
+               "world_1x2": rows, "world_wall_s": wall,
+               "decode_bound_ms_both_ranks": both,
+               "capacity_factor": mo.capacity_factor,
+               "world1_no_drop_capacity_factor": no_drop}
+        log(f"phase 11 (b): deepseek-v2-236b full width, {layers} layers, "
+            f"EP over (1, 2) vs world 1 ({self.smi}): " + json.dumps(out))
+        return out
+
+    def _ep_checkpoint(self):
+        """(c) The deepseek-v2 smoke model's tree saved at world 1 and
+        restored onto a (1, 2) world on the card with the reference's
+        ``param_specs``: every rank's blocks equal the slices of the saved
+        leaves; then ``launch.train --mesh single`` at world 1 exits
+        non-zero with the production mesh's size error."""
+        torch = self.torch
+        from repro_torch.checkpoint import checkpoint as ckpt
+        from repro_torch.configs import get_smoke
+        from repro_torch.convert import model_tree_to_numpy
+        from repro_torch.models import transformer
+        arch = "deepseek-v2-236b"
+        cfg = get_smoke(arch)
+        d = os.path.join(ROOT, "build", "ck_model_mesh")
+        shutil.rmtree(d, ignore_errors=True)
+        model = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                        "cpu")
+        ckpt.save(d, 3, model_tree_to_numpy(cfg, model))
+        ranks = self._world((1, 2), "restore", {"arch": arch, "dir": d,
+                                                "specs": "param"})
+        for r, res in enumerate(ranks):
+            check(res["all_equal"] and res["step"] == 3
+                  and res["device"].startswith("cuda"),
+                  f"checkpoint onto (1, 2): rank {r} {res}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "phi4-mini-3.8b", "--smoke", "--steps", "1", "--mesh",
+               "single", "--device", "cuda", "--checkpoint-dir",
+               os.path.join(ROOT, "build", "ck_mesh_single")]
+        proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
+                                                      PYTHONPATH=SRC),
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode != 0 and "needs a world of 256 ranks"
+              in proc.stderr, f"launch.train --mesh single at world 1: exit "
+              f"{proc.returncode}, {proc.stderr[-500:]}")
+        out = {"restore_1x2": [{k: res[k] for k in ("step", "all_equal",
+                                                   "leaves", "device")}
+                               for res in ranks],
+               "mesh_single_exit": proc.returncode,
+               "mesh_single_error": proc.stderr.strip().splitlines()[-1]}
+        log("phase 11 (c): checkpoint world 1 -> (1, 2) and --mesh single: "
+            + json.dumps(out))
+        return out
+
+
+# -- phase 11 (b): helpers, and the job each rank of its world runs ---------
+# (module-level, so that the spawned ranks, which import this file, find
+# them)
+
+def _full_width_cfg(arch, layers):
+    """``arch`` at full width cut to ``layers`` layers, drawn in the
+    compute dtype."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    return dataclasses.replace(full, num_layers=layers,
+                               param_dtype=full.dtype)
+
+
+def _set_capacity(moes, factor):
+    """Every ``MoEFFN`` of ``moes`` at capacity factor ``factor``."""
+    import dataclasses
+    for m in moes:
+        m.cfg = dataclasses.replace(m.cfg, moe=dataclasses.replace(
+            m.cfg.moe, capacity_factor=factor))
+
+
+def _state_on(state, dev):
+    """A decode state of float32 arrays of bf16 values, back on ``dev``."""
+    import torch
+    return [{n: v if n == "index" else torch.as_tensor(v).to(
+        dev, torch.bfloat16) for n, v in layer.items()} for layer in state]
+
+
+def _combine_in_ep_order(combine, half):
+    """``moe._combine`` in the order a (1, 2) expert-parallel decode adds
+    a token's expert rows: those of experts below ``half`` (rank 0's) in
+    ascending order, those from ``half`` on (rank 1's) likewise, each
+    partial ending in zero rows (its other rank's choices, exact), then
+    the two partials (the ``psum``)."""
+    import torch
+
+    def split(y, slot, ids):
+        n = y.shape[0] * y.shape[1]
+        cut = half * y.shape[1]
+        lo = torch.where(slot < cut, slot, n)
+        hi = torch.where((slot >= cut) & (slot < n), slot, n)
+        return combine(y, lo, ids) + combine(y, hi, ids)
+    return split
+
+
+def _ep_full_width_rank(mesh, dev, p):
+    """One rank of phase 11 (b)'s world: ``arch`` at full width cut to
+    ``layers``, drawn from ``seed`` on the card by each rank in turn (a
+    draw holds a whole leaf's f32 scratch), this rank's blocks kept.  A
+    prefill of ``prompt[:, :2]`` at each factor of ``short_search`` until
+    no rank drops a choice (fails if one always does); a prefill of
+    ``prompt`` at the config's capacity, then at each factor of
+    ``search`` until none drops (dropped choices at each); 12 decode
+    steps at the config's capacity from the handed ``state``,
+    teacher-forced with the columns of ``decode``; decode ms a step by
+    CUDA events (5 samples of 4 steps); init s, peak memory, the
+    collective ledger."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import steps, transformer
+    cfg = _full_width_cfg(p["arch"], p["layers"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            model = transformer.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(p["seed"]), dev,
+                mesh=mesh)
+            torch.cuda.synchronize()
+        dist.barrier()
+    row = {"init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in model.parameters())}
+    moes = Smoke._moe_layers(model)
+    calls = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: calls.append(
+        (mod.stats["ids"].cpu().numpy(), int(mod.stats["dropped"]))))
+        for m in moes]
+
+    def f32(t):
+        return t.float().cpu().numpy()
+
+    def search(prefill, prompt, factors):
+        """Prefills at each factor until no rank drops: [[factor,
+        dropped over the world], ...] and the last prefill's logits."""
+        tried = []
+        for factor in factors:
+            _set_capacity(moes, factor)
+            calls.clear()
+            last = prefill(model, prompt)[1]
+            n = torch.tensor([sum(c[1] for c in calls)])
+            dist.all_reduce(n)
+            tried.append([factor, int(n)])
+            if not int(n):
+                break
+        _set_capacity(moes, cfg.moe.capacity_factor)
+        return tried, last
+
+    mesh.axis_ledger.reset()
+    prompt = torch.as_tensor(p["prompt"]).to(dev)
+    b, s = prompt.shape
+    short = steps.make_prefill_step(cfg, 2, use_ep=True, mesh=mesh)
+    row["short_search"], last = search(short, prompt[:, :2],
+                                       p["short_search"])
+    if row["short_search"][-1][1]:
+        raise RuntimeError(f"short prefill: choices drop at every capacity "
+                           f"factor of {p['short_search']}")
+    row["short_prefill"] = f32(last)
+    row["short_ids"] = [c[0] for c in calls]
+    prefill = steps.make_prefill_step(cfg, p["capacity"], use_ep=True,
+                                      mesh=mesh)
+    calls.clear()
+    row["config_prefill"] = f32(prefill(model, prompt)[1])
+    row["config_prefill_dropped"] = sum(c[1] for c in calls)
+    row["search_dropped"], _ = search(prefill, prompt, p["search"])
+    decode = steps.make_decode_step(cfg, use_ep=True, mesh=mesh)
+    state = _state_on(p["state"], dev)
+    toks = torch.as_tensor(p["decode"]).to(dev)
+    calls.clear()
+    logits = []
+    for j in range(toks.shape[1]):
+        pos = torch.full((b, 1), s + j, dtype=torch.int32, device=dev)
+        state, lg = decode(model, state, toks[:, j:j + 1], pos)
+        logits.append(f32(lg))
+    row["decode"] = np.stack(logits)
+    row["ids"] = [c[0] for c in calls]
+    row["dropped"] = [c[1] for c in calls]
+    row["ledger"] = mesh.axis_ledger.summary()
+    for h in hooks:
+        h.remove()
+    tok, pos = toks[:, :1], torch.full((b, 1), s, dtype=torch.int32,
+                                       device=dev)
+    times = []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(4):
+            decode(model, state, tok, pos)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / 4)
+    row["decode_ms"] = times
+    row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def _leaves(tree):
+    """A nested dict's leaves, depth first in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 if __name__ == "__main__":

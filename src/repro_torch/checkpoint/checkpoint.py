@@ -7,9 +7,12 @@ readable-but-corrupt checkpoint.  The leaves are stored as ``a0 ... aN`` in
 ``jax.tree.flatten``'s order (dict keys sorted at every level, tuples and
 lists in order, ``None`` an empty subtree), so a checkpoint written by
 either package restores in the other.  Tensors are written as numpy arrays
-and restored as tensors; the reference's resharding onto a mesh
-(``mesh=``/``specs=``) waits for the model mesh (ROADMAP queue 1, item
-6.6).
+and restored as tensors.  ``restore(mesh=, specs=)`` reshards onto a model
+mesh (``distributed/mesh.py``), as the reference's elastic restore does:
+each rank reads the whole ``npz`` and keeps its block of each leaf by the
+leaf's spec, so a checkpoint written on one world restores onto another.
+``gather_tree`` gives the whole leaves back from the blocks, so a world of
+more than one rank can write a checkpoint any world restores.
 """
 
 from __future__ import annotations
@@ -24,14 +27,17 @@ import numpy as np
 import torch
 
 
-def _flatten(tree: Any) -> list:
-    """The leaves of ``tree`` in ``jax.tree.flatten``'s order."""
+def _flatten(tree: Any, leaf_type: type = None) -> list:
+    """The leaves of ``tree`` in ``jax.tree.flatten``'s order (an instance
+    of ``leaf_type`` is a leaf, as a ``PartitionSpec`` is one there)."""
+    if leaf_type is not None and isinstance(tree, leaf_type):
+        return [tree]
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in _flatten(tree[k])]
+        return [l for k in sorted(tree) for l in _flatten(tree[k], leaf_type)]
     if isinstance(tree, (tuple, list)):
-        return [l for t in tree for l in _flatten(t)]
+        return [l for t in tree for l in _flatten(t, leaf_type)]
     return [tree]
 
 
@@ -101,11 +107,12 @@ def restore(directory: str, template: Any, *, step: Optional[int] = None,
     """Restore into the structure of ``template``: every leaf a tensor of
     the stored dtype, on ``device``, or where the template's leaf lies (the
     CPU for a leaf that is no tensor).  Returns (tree, step).  A template
-    whose leaf count differs from the checkpoint's raises ``ValueError``."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (mesh=/specs=) waits for the model mesh "
-            "(ROADMAP queue 1, item 6.6)")
+    whose leaf count differs from the checkpoint's raises ``ValueError``.
+    With ``mesh`` and ``specs`` (a tree of ``Spec`` in the template's
+    structure) every leaf is this rank's block under its spec (the whole
+    leaf where the spec shards nothing)."""
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore onto a mesh takes both mesh= and specs=")
     if step is None:
         step = latest_step(directory)
     if step is None:
@@ -117,8 +124,33 @@ def restore(directory: str, template: Any, *, step: Optional[int] = None,
             raise ValueError(
                 f"checkpoint has {len(data.files)} leaves, template {len(targets)}"
                 " — incompatible architecture")
-        loaded = [torch.from_numpy(data[f"a{i}"]).to(
-            device if device is not None
-            else t.device if isinstance(t, torch.Tensor) else "cpu")
-            for i, t in enumerate(targets)]
+        spec_leaves = (_flatten_specs(specs) if mesh is not None
+                       else [None] * len(targets))
+        if len(spec_leaves) != len(targets):
+            raise ValueError(f"specs have {len(spec_leaves)} leaves, "
+                             f"template {len(targets)}")
+        loaded = []
+        for i, (t, spec) in enumerate(zip(targets, spec_leaves)):
+            x = torch.from_numpy(data[f"a{i}"])
+            if spec is not None:
+                from repro_torch.distributed.mesh import shard_leaf
+                x = shard_leaf(mesh, x, spec)
+            loaded.append(x.to(
+                device if device is not None
+                else t.device if isinstance(t, torch.Tensor) else "cpu"))
     return _unflatten(template, iter(loaded)), step
+
+
+def _flatten_specs(specs: Any) -> list:
+    """A tree of ``Spec`` leaves in ``_flatten``'s order."""
+    from repro_torch.distributed.mesh import Spec
+    return _flatten(specs, Spec)
+
+
+def gather_tree(tree: Any, mesh, specs: Any) -> Any:
+    """The whole leaves of a tree of this rank's blocks (every rank calls
+    it: an all-gather a sharded dim), in the tree's structure."""
+    from repro_torch.distributed.mesh import unshard_leaf
+    leaves = [unshard_leaf(mesh, l, s) if isinstance(l, torch.Tensor) else l
+              for l, s in zip(_flatten(tree), _flatten_specs(specs))]
+    return _unflatten(tree, iter(leaves))

@@ -1,4 +1,5 @@
-"""The join engine's mesh over a ``torch.distributed`` world.
+"""The meshes over a ``torch.distributed`` world: the join engine's, and
+the model zoo's (the production mesh and its logical axis rules).
 
 The JAX package lays its sharded join over a device mesh with axes
 ``("pod", "data", "model")``; here the devices are the ranks of a
@@ -27,14 +28,41 @@ the three process groups the ring engine talks over:
 (including those it is not in) in the same order, which
 ``make_join_mesh`` does.  A mesh must cover the world exactly: a rank
 outside it would hold no shard and take no part in the collectives.
+
+The model zoo's expert-parallel code reduces over named axes, as the
+reference's ``shard_map`` bodies do (``psum(x, "model")``,
+``all_gather(w, ("data", "pod"))``).  A mesh made with ``axis_groups``
+(``make_mesh``, ``make_production_mesh``) also holds one process group per
+set of axes and per coordinate of the other axes: ``axis_group(axes)`` is
+this rank's.  Over a tuple of axes the ranks are ordered by their
+flattened index, the first axis major (``axis_members``, ``axis_index``):
+the reference's rule for a tuple in one entry of a ``PartitionSpec``, and
+the order of its ``fi = fi * size + index`` loop.  ``env.fsdp`` is
+``("data", "pod")``, data-major, while the world's ranks are pod-major.
+
+Logical dimension names resolve to mesh axes by ``AxisEnv``, as in the
+reference:
+
+  batch   — activation batch dim           -> ("pod", "data")
+  fsdp    — weight dim sharded ZeRO-3 style -> ("data", "pod")
+  tp      — tensor-parallel weight/act dim -> ("model",)
+  sp      — sequence dim of saved activations -> ("model",)
+  expert  — MoE expert dim                  -> ("model",)
+  (None)  — replicated
+
+A ``Spec`` (one entry a dim: ``None``, an axis, or a tuple of axes) is the
+port's ``PartitionSpec``; ``shard_leaf`` gives this rank's block of a
+tensor under one, ``unshard_leaf`` the whole tensor back from the blocks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
-from typing import Optional
+import itertools
+from typing import Optional, Sequence
 
-from repro_torch.distributed.collectives import CollectiveLedger
+from repro_torch.distributed.collectives import AxisLedger, CollectiveLedger
 
 AXES = ("pod", "data", "model")
 # a hung peer fails the collective after this long instead of hanging
@@ -60,9 +88,13 @@ def world_rank() -> int:
 class JoinMesh:
     """A mesh of ranks with named axes, this rank's place on it and its
     process groups (``None`` on a 1-rank world).  Compared by identity, as
-    the reference's meshes are used as cache keys."""
+    the reference's meshes are used as cache keys.  With ``axis_groups``
+    it also creates a group for every set of its axes (``axis_group``), so
+    a 16-rank (2, 4, 2) world creates 28 more groups: only the model zoo's
+    meshes ask for them."""
 
-    def __init__(self, axis_names: tuple, sizes: tuple):
+    def __init__(self, axis_names: tuple, sizes: tuple, *,
+                 axis_groups: bool = False):
         if len(axis_names) != len(sizes) or min(sizes) < 1:
             raise ValueError(f"mesh axes {axis_names} and sizes {sizes}")
         self.axis_names = tuple(axis_names)
@@ -76,18 +108,15 @@ class JoinMesh:
                 f"mesh {self.shape} has {self.size} ranks but the world has "
                 f"{n} devices: a mesh must cover the world exactly")
         self.rank = world_rank()
-        # pod-major coordinates of this rank
-        rest, coords = self.rank, {}
-        for name in reversed(self.axis_names):
-            coords[name] = rest % self.shape[name]
-            rest //= self.shape[name]
-        self.coords = {name: coords[name] for name in self.axis_names}
+        self.coords = self._coords_of(self.rank)      # pod-major
         self.n_pods = self.shape.get("pod", 1)
         self.n_inner = self.size // self.n_pods
         self.pod = self.coords.get("pod", 0)
         self.inner_index = self.rank % self.n_inner
         self.coordinator = 0
         self.ledger = CollectiveLedger()
+        self.axis_ledger = AxisLedger()
+        self._axis_groups: dict = {}
         self.inner = self.cross = self.pull = None
         self.inner_ranks = [self.pod * self.n_inner + i
                             for i in range(self.n_inner)]
@@ -96,6 +125,8 @@ class JoinMesh:
         self.pull_ranks = list(range(self.size))
         if n > 1:
             self._make_groups()
+            if axis_groups:
+                self._make_axis_groups()
 
     def _make_groups(self) -> None:
         """Every rank creates every group of more than one rank, in the
@@ -119,6 +150,73 @@ class JoinMesh:
                 if i == self.inner_index:
                     self.cross = g
         self.pull = new_group(self.pull_ranks)
+
+    def _make_axis_groups(self) -> None:
+        """One group per non-empty set of axes and per coordinate of the
+        other axes, every rank creating every group in the same order
+        (sets in ``itertools.combinations`` order, then groups by their
+        lowest rank)."""
+        dist = _dist()
+        for k in range(1, len(self.axis_names) + 1):
+            for axes in itertools.combinations(self.axis_names, k):
+                parts: dict = {}
+                for r in range(self.size):
+                    c = self._coords_of(r)
+                    key = tuple(c[a] for a in self.axis_names
+                                if a not in axes)
+                    parts.setdefault(key, []).append(r)
+                for ranks in parts.values():
+                    g = (dist.new_group(ranks, timeout=GROUP_TIMEOUT)
+                         if len(ranks) > 1 else None)
+                    if self.rank in ranks:
+                        self._axis_groups[frozenset(axes)] = g
+
+    def _coords_of(self, rank: int) -> dict:
+        """A rank's coordinates, the first axis major."""
+        rest, coords = rank, {}
+        for name in reversed(self.axis_names):
+            coords[name] = rest % self.shape[name]
+            rest //= self.shape[name]
+        return {name: coords[name] for name in self.axis_names}
+
+    def _rank_of(self, coords: dict) -> int:
+        r = 0
+        for name in self.axis_names:
+            r = r * self.shape[name] + coords[name]
+        return r
+
+    def axis_size(self, axes: Sequence[str]) -> int:
+        """Ranks along ``axes`` (an axis the mesh lacks counts 1)."""
+        return axis_size(self, tuple(axes))
+
+    def axis_index(self, axes: Sequence[str]) -> int:
+        """This rank's flattened index over ``axes``, the first major."""
+        i = 0
+        for a in axes:
+            i = i * self.shape.get(a, 1) + self.coords.get(a, 0)
+        return i
+
+    def axis_members(self, axes: Sequence[str]) -> list:
+        """The world ranks that share this rank's coordinates off ``axes``,
+        in flattened-index order over ``axes`` (the first axis major)."""
+        axes = [a for a in axes if a in self.shape]
+        out = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(self.coords)
+            c.update(zip(axes, idx))
+            out.append(self._rank_of(c))
+        return out
+
+    def axis_group(self, axes: Sequence[str]):
+        """This rank's process group over ``axes``: ``None`` when it has
+        one rank.  The mesh must have been made with ``axis_groups``."""
+        if self.axis_size(axes) == 1:
+            return None
+        key = frozenset(a for a in axes if a in self.shape)
+        if key not in self._axis_groups:
+            raise ValueError(f"{self!r} has no process group over {sorted(key)}:"
+                             f" make it with axis_groups=True")
+        return self._axis_groups[key]
 
     @property
     def is_coordinator(self) -> bool:
@@ -182,3 +280,145 @@ def l_shard_axes(mesh) -> tuple:
     """Mesh axes the join engine shards L rows over: ("pod", "data") on a
     pod mesh, ("data",) otherwise."""
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's mesh: production shapes, logical axis rules, specs
+# ---------------------------------------------------------------------------
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> JoinMesh:
+    """A mesh of ``shape`` over ``axis_names`` covering the world, with a
+    process group per set of axes (``jax.make_mesh``'s counterpart for the
+    model zoo).  A world of another size raises ``ValueError``."""
+    return JoinMesh(tuple(axis_names), tuple(shape), axis_groups=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> JoinMesh:
+    """The production mesh: (16, 16) over ("data", "model"), one pod of
+    256 ranks; or (2, 16, 16) over ("pod", "data", "model").  The world
+    must have exactly that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for s in shape:
+        need *= s
+    n = world_size()
+    if n != need:
+        raise ValueError(f"the production mesh {shape} over {axes} needs a "
+                         f"world of {need} ranks, have {n}")
+    return make_mesh(shape, axes)
+
+
+class Spec(tuple):
+    """A partition spec: one entry a dim, ``None`` (replicated), an axis
+    name, or a tuple of axis names (sharded over their flattened index,
+    the first major).  Compares equal to the tuple of its entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+    def axes(self, dim: int) -> tuple:
+        """The axes dim ``dim`` is sharded over (``()`` if replicated)."""
+        e = self[dim] if dim < len(self) else None
+        return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+    def all_axes(self) -> tuple:
+        return tuple(a for d in range(len(self)) for a in self.axes(d))
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisEnv:
+    """Resolved mesh-axis assignments for the logical names."""
+    batch: tuple
+    fsdp: tuple
+    tp: tuple
+    sp: tuple
+    expert: tuple
+
+    @staticmethod
+    def from_mesh(mesh) -> "AxisEnv":
+        """From anything with ``axis_names`` (a ``JoinMesh``)."""
+        names = set(mesh.axis_names)
+        data = ("data",) if "data" in names else ()
+        pod = ("pod",) if "pod" in names else ()
+        model = ("model",) if "model" in names else ()
+        return AxisEnv(batch=pod + data, fsdp=data + pod, tp=model, sp=model,
+                       expert=model)
+
+    def resolve(self, logical: Sequence[Optional[str]]) -> Spec:
+        """Map a tuple of logical dim names to a ``Spec``."""
+        out = []
+        for name in logical:
+            axes = () if name is None else getattr(self, name)
+            out.append(None if not axes else axes[0] if len(axes) == 1
+                       else tuple(axes))
+        return Spec(*out)
+
+
+def axis_size(mesh, names: tuple) -> int:
+    n = 1
+    for name in names:
+        n *= mesh.shape.get(name, 1)
+    return n
+
+
+def batch_spec(env: AxisEnv, mesh, global_batch: int) -> Optional[str]:
+    """'batch' if the batch dim divides the batch mesh axes, else None
+    (a global batch of 1 is replicated rather than padded)."""
+    ways = axis_size(mesh, env.batch)
+    return "batch" if global_batch % ways == 0 and global_batch >= ways else None
+
+
+def _block(mesh, shape, spec: Spec) -> tuple:
+    """This rank's slice of each dim under ``spec``."""
+    out = []
+    for dim, n in enumerate(shape):
+        axes = spec.axes(dim)
+        ways = axis_size(mesh, axes)
+        if n % ways:
+            raise ValueError(f"dim {dim} of size {n} does not split over "
+                             f"{axes} ({ways} ways)")
+        step = n // ways
+        i = mesh.axis_index(axes) if axes else 0
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def block_shape(mesh, shape, spec: Spec) -> tuple:
+    """The shape of this rank's block of a ``shape`` tensor under
+    ``spec``."""
+    return tuple(sl.stop - sl.start
+                 for sl in _block(mesh, tuple(shape), Spec(*spec)))
+
+
+def block_slices(mesh, shape, spec: Spec) -> tuple:
+    """This rank's slice of each dim of a ``shape`` tensor under
+    ``spec``."""
+    return _block(mesh, tuple(shape), Spec(*spec))
+
+
+def shard_leaf(mesh, x, spec: Spec):
+    """This rank's block of ``x`` under ``spec``: a view where the spec
+    shards nothing, else a contiguous copy (so the whole ``x`` can be
+    freed).  Every sharded dim must divide evenly."""
+    spec = Spec(*spec)
+    sl = _block(mesh, tuple(x.shape), spec)
+    if not spec.all_axes():
+        return x
+    return x[sl].contiguous()
+
+
+def unshard_leaf(mesh, block, spec: Spec):
+    """The whole tensor from every rank's ``block`` under ``spec`` (all
+    ranks call it; all-gathers over each sharded dim's axes)."""
+    from repro_torch.distributed import collectives
+    spec = Spec(*spec)
+    for dim in range(block.ndim):
+        axes = spec.axes(dim)
+        if axes:
+            block = collectives.axis_all_gather(block, mesh, axes, dim,
+                                               "checkpoint")
+    return block

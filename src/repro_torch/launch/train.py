@@ -10,9 +10,17 @@ injects a crash at step N to exercise the restart path.  Checkpoints hold
 ``(params, opt_state)`` in the reference's layout and format, so either
 package resumes the other's.  Weights are drawn from ``--seed`` by a
 ``torch.Generator`` on the target device (``--device``, the card unless
-``cpu`` is asked for).  Only the host mesh exists: ``--mesh single|multi``
-waits for the model mesh (ROADMAP queue 1, item 6.6).  Prints one JSON
-report with the reference's keys.
+``cpu`` is asked for).  ``--mesh host`` (the default) trains in this one
+process; ``--mesh single|multi`` joins the world a ``torchrun``-style
+environment describes (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``; gloo) and builds the production mesh over it, (16, 16) or
+(2, 16, 16), which must have exactly 256 or 512 ranks (else the
+``ValueError`` names the size it needs).  That is all the mesh does here:
+the launcher then trains with ``use_ep=False``, as the reference's does,
+but the dense leaves are not sharded yet (ROADMAP queue 1), so every rank
+trains a redundant whole copy of the model on the same batches, with no
+collective, and rank 0 writes the checkpoints.  Prints one JSON report
+with the reference's keys.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.convert import model_tree_to_numpy, opt_state_to_numpy
 from repro_torch.data.pipeline import PackedLMConfig, PackedLMDataset, PrefetchLoader
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import (init_from_env, make_production_mesh,
+                                          world_rank)
 from repro_torch.models import steps, transformer
 from repro_torch.models.layers import tree_map
 from repro_torch.optim import adamw
@@ -80,10 +90,13 @@ def train(arch: str, *, smoke: bool = True, steps_n: int = 50, batch: int = 8,
           fail_at: int = -1, mesh_kind: str = "host", seed: int = 0,
           grad_compression: str = "none", log_every: int = 10,
           device="cuda") -> dict:
+    if mesh_kind not in ("host", "single", "multi"):
+        raise ValueError(f"--mesh {mesh_kind}: use host, single or multi")
     if mesh_kind != "host":
-        raise NotImplementedError(
-            f"--mesh {mesh_kind}: the model mesh is not ported yet (ROADMAP "
-            f"queue 1, item 6.6); use --mesh host")
+        init_from_env()
+        # checks the world's size; the ranks then train redundant copies
+        make_production_mesh(multi_pod=mesh_kind == "multi")
+    writer = world_rank() == 0
     dev = resolve_device(device)
     ckpt_dir = ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
     cfg = get_smoke(arch) if smoke else get_config(arch)
@@ -109,7 +122,8 @@ def train(arch: str, *, smoke: bool = True, steps_n: int = 50, batch: int = 8,
             b = loader.next()
             batch_dev = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
             opt, metrics = train_step(model, opt, batch_dev)
-            if (step + 1) % ckpt_every == 0 or step + 1 == steps_n:
+            if writer and ((step + 1) % ckpt_every == 0
+                           or step + 1 == steps_n):
                 ckpt.save(ckpt_dir, step + 1, _state_tree(cfg, model, opt))
             if (step + 1) % log_every == 0:
                 print(f"[train] step {step+1}/{steps_n} "
@@ -135,7 +149,8 @@ def main():
                     help="default: repro_torch_ckpt in the temp directory")
     ap.add_argument("--checkpoint-every", type=int, default=20)
     ap.add_argument("--fail-at", type=int, default=-1)
-    ap.add_argument("--mesh", default="host")
+    ap.add_argument("--mesh", default="host",
+                    choices=("host", "single", "multi"))
     ap.add_argument("--grad-compression", default="none",
                     choices=("none", "fp16", "int8"))
     ap.add_argument("--seed", type=int, default=0)

@@ -1,10 +1,11 @@
 """Core layer primitives: parameter definitions, norms, FFNs, embeddings.
 
 Parameters are declared once as ``ParamDef`` (shape + logical dim names +
-initializer); the same declaration yields materialized weights and exact
-parameter counts, in the JAX package's tree layout (``models/transformer``
-maps that layout onto its modules).  The logical names are kept for the
-sharding specs of a later slice.
+initializer); the same declaration yields materialized weights (whole,
+or this rank's block of each leaf over a model mesh), a matching tree of
+sharding specs (``spec_tree``), ``meta``-device stand-ins
+(``abstract_tree``) and exact parameter counts, in the JAX package's tree
+layout (``models/transformer`` maps that layout onto its modules).
 """
 
 from __future__ import annotations
@@ -26,24 +27,31 @@ class ParamDef:
     dtype: str = "float32"
 
     def initialize(self, generator: torch.Generator, device,
-                   dtype: str = None) -> torch.Tensor:
+                   dtype: str = None, block: tuple = None) -> torch.Tensor:
         """``normal * scale / sqrt(fan_in)`` drawn from ``generator`` (which
         must live on ``device``), or zeros or ones.  ``fan_in`` is the first
         dim, as in the reference: for a scanned leaf that is the number of
         periods.  The draw and the scaling are f32 (in place: one f32
         scratch the size of the leaf), then rounded once to ``dtype``
         (default: the definition's), so a leaf drawn in bf16 equals the f32
-        leaf cast to bf16."""
+        leaf cast to bf16.  With ``block`` (a slice a dim) the whole leaf is
+        drawn, so the generator advances as for the whole, and only the
+        block is kept, copied out of the f32 scratch."""
         dt = getattr(torch, dtype or self.dtype)
+        shape = self.shape if block is None else tuple(
+            sl.stop - sl.start for sl in block)
         if self.init == "zeros":
-            return torch.zeros(self.shape, dtype=dt, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if self.init == "ones":
-            return torch.ones(self.shape, dtype=dt, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         fan_in = self.shape[0] if len(self.shape) > 1 else max(self.shape[0], 1)
         std = self.scale / math.sqrt(fan_in)
         x = torch.randn(self.shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return x.mul_(std).to(dt)
+        x.mul_(std)
+        if block is None:
+            return x.to(dt)
+        return torch.empty(shape, dtype=dt, device=device).copy_(x[block])
 
 
 ParamTree = dict  # nested dict of ParamDef / tensors
@@ -65,10 +73,29 @@ def tree_map(fn, tree: dict) -> dict:
 
 
 def init_tree(defs: ParamTree, generator: torch.Generator, device,
-              dtype: str = None) -> ParamTree:
+              dtype: str = None, blocks: ParamTree = None) -> ParamTree:
     """Materialize a tree of ParamDef into tensors, drawn in leaf order,
-    each leaf in ``dtype`` (default: its definition's) as it is drawn."""
-    return tree_map(lambda d: d.initialize(generator, device, dtype), defs)
+    each leaf in ``dtype`` (default: its definition's) as it is drawn.
+    ``blocks`` (the same tree of per-dim slices) keeps one block of each
+    leaf: the values the whole draw has there."""
+    if blocks is None:
+        return tree_map(lambda d: d.initialize(generator, device, dtype), defs)
+    return {k: init_tree(v, generator, device, dtype, blocks[k])
+            if isinstance(v, dict)
+            else v.initialize(generator, device, dtype, blocks[k])
+            for k, v in defs.items()}
+
+
+def spec_tree(defs: ParamTree, env) -> ParamTree:
+    """Each leaf's logical dims resolved to a ``Spec`` on ``env`` (an
+    ``AxisEnv``)."""
+    return tree_map(lambda d: env.resolve(d.logical), defs)
+
+
+def abstract_tree(defs: ParamTree) -> ParamTree:
+    """Each leaf as a ``meta``-device tensor of its shape and dtype."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=getattr(torch, d.dtype),
+                                          device="meta"), defs)
 
 
 def count_tree(defs: ParamTree) -> int:

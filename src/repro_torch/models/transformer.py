@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -32,12 +32,15 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.common.config import BlockKind, FFNKind, ModelConfig
+from repro_torch.distributed.mesh import (AxisEnv, Spec, block_shape,
+                                          block_slices)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
-    DenseFFN, ParamDef, ParamTree, RMSNorm, count_tree, dense_ffn_defs,
-    embedding_defs, init_tree, softcap, stack_defs, tree_leaves, tree_map,
+    DenseFFN, ParamDef, ParamTree, RMSNorm, abstract_tree, count_tree,
+    dense_ffn_defs, embedding_defs, init_tree, softcap, spec_tree,
+    stack_defs, tree_leaves, tree_map,
 )
 
 # the SSM kinds: (parameter defs, state defs, mixer module)
@@ -127,10 +130,12 @@ class Block(nn.Module):
                         else DenseFFN(ffn_w, compute_dtype))
 
     def forward(self, x, positions, state=None, valid_from=None, valid=None,
-                memory=None):
+                memory=None, use_ep=False, mesh=None, env=None):
         """valid: (B, S) bool of a padded prefill (the SSM recurrences'
         identity steps); memory: (B, M, d) for a cross block, zeros
-        (B, 1, d) when None, as in the reference."""
+        (B, 1, d) when None, as in the reference.  With ``use_ep`` and a
+        model ``mesh`` an MoE FFN runs ``moe_block_sharded`` (the
+        reference's EP branch)."""
         h = self.ln1(x)
         new_state = state
         if self.kind == BlockKind.CROSS_ATTN.value:
@@ -144,7 +149,7 @@ class Block(nn.Module):
         x = x + h
         aux = None
         if isinstance(self.ffn, moe_lib.MoEFFN):
-            h, aux = self.ffn(self.ln2(x))
+            h, aux = self.ffn(self.ln2(x), use_ep, mesh, env)
             x = x + h
         elif self.ffn is not None:
             x = x + self.ffn(self.ln2(x))
@@ -249,6 +254,38 @@ def active_param_count(cfg: ModelConfig) -> int:
     return total - n_moe * inactive
 
 
+def param_specs(cfg: ModelConfig, env: AxisEnv) -> ParamTree:
+    """The reference's ``param_specs``: every leaf's logical dims resolved
+    on ``env`` (the layout its ``pjit`` gives the weights)."""
+    return spec_tree(model_defs(cfg), env)
+
+
+def abstract_params(cfg: ModelConfig) -> ParamTree:
+    """Every leaf as a tensor on the ``meta`` device (shape and dtype, no
+    storage): the reference's ``abstract_params``."""
+    return abstract_tree(model_defs(cfg))
+
+
+def local_specs(cfg: ModelConfig, env: AxisEnv) -> ParamTree:
+    """The port's layout of the parameters over a model mesh: the leaves
+    of each MoE ``ffn`` subtree as ``moe_block_sharded`` takes them
+    (``moe.moe_param_specs``: experts over ``model`` and ``fsdp``, shared
+    experts over ``fsdp``, a scanned leaf with its leading axis whole),
+    every other leaf whole (``Spec`` of ``None``)."""
+    specs = tree_map(lambda d: Spec(*([None] * len(d.shape))),
+                     model_defs(cfg))
+    if cfg.moe is None:
+        return specs
+    moe_spec = moe_lib.moe_param_specs(env, cfg.moe.num_shared_experts > 0)
+    for seg in ("prefix", "scanned"):
+        for blk in specs.get(seg, {}).values():
+            if "router" not in blk.get("ffn", {}):
+                continue
+            lead = (None,) if seg == "scanned" else ()
+            blk["ffn"] = tree_map(lambda sp: Spec(*lead, *sp), moe_spec)
+    return specs
+
+
 def _port_name(prefix: str, leaf: tuple) -> str:
     # a norm is an RMSNorm module: its leaf is the module's ``weight``
     name = ".".join(leaf) + (".weight" if len(leaf) == 1
@@ -279,14 +316,20 @@ def reference_leaves(cfg: ModelConfig) -> list:
             for path, d in sorted(tree_leaves(model_defs(cfg)))]
 
 
-def weights_from_tree(cfg: ModelConfig, tree: dict) -> dict:
+def weights_from_tree(cfg: ModelConfig, tree: dict, mesh=None) -> dict:
     """The ``Transformer``'s weights, keyed by parameter name, from a tree
     of tensors in the reference's layout (``embed/embedding``, ``ln_f``,
     ``prefix/<i>/...``, ``scanned/<j>/...`` with a leading ``n_periods``
     axis, ``unembed`` when untied).  Scanned leaves are unstacked into
     views, one a layer.  A missing or surplus leaf, or a leaf whose shape
-    is not the config's, raises ``ValueError``."""
+    is not the config's, raises ``ValueError``.  With a model ``mesh`` the
+    tree holds this rank's blocks (``local_specs``) and their shapes are
+    checked."""
     defs = dict(tree_leaves(model_defs(cfg)))
+    if mesh is not None:
+        specs = dict(tree_leaves(local_specs(cfg, AxisEnv.from_mesh(mesh))))
+        defs = {p: dataclasses.replace(d, shape=block_shape(
+            mesh, d.shape, specs[p])) for p, d in defs.items()}
     got = dict(tree_leaves(tree))
     missing, surplus = sorted(set(defs) - set(got)), sorted(set(got) - set(defs))
     if missing or surplus:
@@ -347,6 +390,33 @@ def state_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
     return out
 
 
+def _map_sd(fn, tree):
+    """``fn`` over the ``(shape, logical, dtype)`` leaves of a
+    ``state_defs`` tree (``None`` kept)."""
+    if tree is None:
+        return None
+    return {k: _map_sd(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def state_specs(cfg: ModelConfig, env: AxisEnv, batch: int, capacity: int,
+                batch_logical: Optional[str] = "batch") -> dict:
+    """The decode state's specs on ``env``, the reference's
+    ``state_specs``: ``batch_logical`` stands for each ``batch`` dim
+    (``None`` replicates a batch that does not divide the batch axes)."""
+    def mk(sd):
+        return env.resolve(tuple(batch_logical if name == "batch" else name
+                                 for name in sd[1]))
+    return _map_sd(mk, state_defs(cfg, batch, capacity))
+
+
+def abstract_state(cfg: ModelConfig, batch: int, capacity: int) -> dict:
+    """The decode state's leaves as ``meta``-device tensors."""
+    return _map_sd(lambda sd: torch.empty(sd[0], dtype=getattr(torch, sd[2]),
+                                          device="meta"),
+                   state_defs(cfg, batch, capacity))
+
+
 def init_state(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
     """A zeroed decode state on ``device``: one dict a layer, in layer
     order (``state_defs``' leaves unstacked), ``index`` a Python int.  An
@@ -393,7 +463,8 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 state: Optional[list] = None, valid_from=None,
-                memory: Optional[torch.Tensor] = None):
+                memory: Optional[torch.Tensor] = None, use_ep: bool = False,
+                mesh=None, sp_constraint: Optional[Callable] = None):
         """tokens: (B, S) int, or (B, S, F) frontend embeds.  Returns
         (logits f32 (B, S, V), new_state, aux_loss), the aux loss summed
         over the MoE layers as the reference sums it (the prefix's in
@@ -406,7 +477,14 @@ class Transformer(nn.Module):
         (projected once by ``memory_proj``; (B, M, d) without one) for the
         cross layers, which attend to zeros without it.  With
         ``cfg.remat``, when gradients are taken and there is no state, each
-        block is checkpointed (``_remat``)."""
+        block is checkpointed (``_remat``).  ``use_ep`` and ``mesh`` (a
+        model mesh, ``distributed.mesh.make_mesh``) run the MoE FFNs
+        expert-parallel (``moe.moe_block_sharded``: the model's MoE
+        leaves hold this rank's blocks, ``init_params(mesh=)``); every
+        other leaf is whole on every rank, which computes the rest of the
+        model on the whole batch.  ``sp_constraint``, when given, is
+        applied to the activations after the embedding and after each
+        block, where the reference constrains their sharding."""
         cdt = self.compute_dtype
         emb = self.embed["embedding"]
         if tokens.ndim == 3:
@@ -424,17 +502,23 @@ class Transformer(nn.Module):
         if valid_from is not None and s > 1:
             valid = (torch.arange(s, device=x.device)[None, :]
                      >= valid_from[:, None])
+        if sp_constraint is not None:
+            x = sp_constraint(x)
+        env = AxisEnv.from_mesh(mesh) if mesh is not None else None
         remat = self.cfg.remat and state is None and torch.is_grad_enabled()
         new_state = [] if state is not None else None
         auxes = []
         for i, blk in enumerate(self.layers):
             if remat:
                 x, st, aux = _remat(blk, self.cfg.remat_policy, x, positions,
-                                    valid_from, valid, memory)
+                                    valid_from, valid, memory, use_ep, mesh,
+                                    env)
             else:
                 x, st, aux = blk(x, positions,
                                  state[i] if state is not None else None,
-                                 valid_from, valid, memory)
+                                 valid_from, valid, memory, use_ep, mesh, env)
+            if sp_constraint is not None:
+                x = sp_constraint(x)
             auxes.append(aux)
             if state is not None:
                 new_state.append(st)
@@ -483,7 +567,8 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(blk: Block, policy: str, x, positions, valid_from, valid, memory):
+def _remat(blk: Block, policy: str, x, positions, valid_from, valid, memory,
+           use_ep=False, mesh=None, env=None):
     """``blk`` under activation checkpointing, as the reference's
     ``jax.checkpoint`` a block: ``nothing_saveable`` keeps only the block's
     inputs and recomputes the rest in the backward pass; any other policy
@@ -492,16 +577,33 @@ def _remat(blk: Block, policy: str, x, positions, valid_from, valid, memory):
     kw = {} if policy == "nothing_saveable" else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _save_dots)}
     return checkpoint(blk, x, positions, None, valid_from, valid, memory,
-                      use_reentrant=False, **kw)
+                      use_ep, mesh, env, use_reentrant=False, **kw)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Transformer:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                mesh=None) -> Transformer:
     """A ``Transformer`` with weights drawn as the reference's
     ``init_params`` draws them (``ParamDef.initialize`` per leaf of the
     reference's tree) from ``generator``, which lives on ``device``.  Each
     leaf is drawn in f32 and rounded to ``cfg.param_dtype`` as it is drawn
     (the reference ignores ``param_dtype`` and keeps f32): a model too
     large for f32 on one card is drawn in bf16, leaf by leaf, with the
-    values an f32 draw cast to bf16 would have."""
+    values an f32 draw cast to bf16 would have.  On a model ``mesh`` each
+    rank draws every leaf whole (the generator's sequence is the world-1
+    one) and keeps its block (``local_specs``): the same weights as a
+    world of one, each rank holding its share of the experts.  The peak is
+    the kept blocks plus one whole leaf in f32."""
+    defs = model_defs(cfg)
+    blocks = None
+    if mesh is not None:
+        specs = local_specs(cfg, AxisEnv.from_mesh(mesh))
+        blocks = _zip_map(lambda d, sp: block_slices(mesh, d.shape, sp),
+                          defs, specs)
     return Transformer(cfg, weights_from_tree(
-        cfg, init_tree(model_defs(cfg), generator, device, cfg.param_dtype)))
+        cfg, init_tree(defs, generator, device, cfg.param_dtype, blocks),
+        mesh))
+
+
+def _zip_map(fn, a: dict, b: dict) -> dict:
+    return {k: _zip_map(fn, v, b[k]) if isinstance(v, dict) else fn(v, b[k])
+            for k, v in a.items()}

@@ -116,16 +116,18 @@ def compress_grads(grads: dict, mode: str):
 
 
 def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig,
-                 lr_fn=None):
+                 lr_fn=None, norm: torch.Tensor = None):
     """One AdamW step, in place.  Returns (params, opt_state, metrics), the
     first two being the objects passed in.
 
     ``grads`` is consumed: each gradient is scaled in place, reused as
     scratch and removed from the dict once its parameter is updated.  Per
     leaf, the reference's op order: ``m = b1*m + (1-b1)*g``, ``v = b2*v +
-    (1-b2)*g^2``, ``p -= lr * (m/bc1 / (sqrt(v/bc2) + eps) + wd*p)``."""
+    (1-b2)*g^2``, ``p -= lr * (m/bc1 / (sqrt(v/bc2) + eps) + wd*p)``.
+    ``norm``, when given, is the gradients' global norm (over a model mesh
+    the whole tree's, not this rank's blocks')."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
         scale = _clip_scale(gnorm, cfg.grad_clip)
         opt_state["step"].add_(1)
         step = opt_state["step"].to(torch.float32)

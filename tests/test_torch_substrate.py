@@ -77,11 +77,18 @@ def test_checkpoint_incompatible_template_rejected(tmp_path):
 
 def test_restore_onto_a_mesh_waits_for_the_model_mesh(tmp_path):
     """The reference reshards a restore onto a mesh (its elastic restore);
-    the port has no model mesh yet and says so."""
+    the port does too since the model mesh: on a world of one the host
+    mesh's block of a ``("data", None)`` leaf is the whole leaf, and a
+    mesh without specs (or specs without a mesh) is refused."""
+    from repro_torch.distributed.mesh import Spec, make_host_mesh
     d = str(tmp_path / "ck")
     ckpt.save(d, 1, {"w": torch.arange(16.0).reshape(4, 4)})
-    with pytest.raises(NotImplementedError, match="6.6"):
-        ckpt.restore(d, {"w": 0}, mesh=object(), specs={"w": None})
+    restored, _ = ckpt.restore(d, {"w": 0}, device="cpu",
+                               mesh=make_host_mesh(),
+                               specs={"w": Spec("data", None)})
+    assert torch.equal(restored["w"], torch.arange(16.0).reshape(4, 4))
+    with pytest.raises(ValueError, match="both mesh= and specs="):
+        ckpt.restore(d, {"w": 0}, mesh=make_host_mesh())
     restored, _ = ckpt.restore(d, {"w": 0}, device="cpu")
     assert torch.equal(restored["w"], torch.arange(16.0).reshape(4, 4))
 

@@ -321,4 +321,5 @@ def test_train_cli_fails_then_resumes(tmp_path):
     assert np.isfinite(out["loss"]) and out["steps"] == 6
     assert out["params"] == tr.count_params(get_smoke("starcoder2-3b"))
     proc = _run_train(*common, "--mesh", "single")
-    assert proc.returncode != 0 and "6.6" in proc.stderr
+    assert proc.returncode != 0
+    assert "needs a world of 256 ranks, have 1" in proc.stderr
