@@ -76,7 +76,10 @@ Phases, in order; any failure exits non-zero before the last line:
      busy time comes from the profiler;
   7. the ring engine: (a) the compaction kernel bit-identical to its plain
      version on random masks (densities 0 to 1, overflow, offsets, up to
-     2**14 x 2**12 bits); (b) the one-shot join on ``products --size 4``
+     2**14 x 2**12 bits; a production band's 262144 x 128 words at
+     densities 0, 2e-6 and 1e-3; a count 100 below 2**31, which wraps and
+     writes nothing), its count given as an int and as a device tensor;
+     (b) the one-shot join on ``products --size 4``
      through ``launch.join --engine sharded --r-chunk 512`` (launch counts
      reset just before and read just after: kernel A and the compaction
      launch once a band step and once a retry or re-dispatch), then the
@@ -92,7 +95,10 @@ Phases, in order; any failure exits non-zero before the last line:
      6's two-tenant fleet on ``sharded`` (band steps through the fleet's
      scheduler, concurrent == serial == phase 6's pairs); (e) the
      ring's traces checked by ``trace_report --check``; the compaction
-     kernel timed at the main path's band and at a production band;
+     kernel timed at the main path's band and at a production band
+     (events, one call, the profiler's device time and kernels a call,
+     which must be 1, and the host's enqueue time a call), each reading
+     held to its bytes bound;
   8. the join mesh (the ring L-sharded over ranks): (a) a world of one
      through the mesh code path — ``products --size 4`` through
      ``launch.join --engine sharded --pods 1`` equal to phase 7's launcher
@@ -490,6 +496,10 @@ class Smoke:
         for name in secs:
             for line in self.build.ptxas_report(name):
                 log(f"ptxas {name}: {line}")
+        entries = [ln for ln in self.build.ptxas_report("extract")
+                   if "Compiling entry function" in ln]
+        check(len(entries) == 1, f"csrc/extract.cu builds {len(entries)} "
+              f"kernels, want one")
 
     def _fixture(self, rng, fv, nl, nr, d):
         np = self.np
@@ -1457,26 +1467,33 @@ class Smoke:
 
     def compaction_compare(self, packed, cap, count=0, what="",
                            **offsets):
-        """Kernel vs plain version on the same CUDA inputs: the buffers
-        and counts must be equal, bit for bit.  Returns the count and what
+        """Kernel vs plain version on the same CUDA inputs, the kernel's
+        count given as a device tensor and as an int: the buffers and
+        counts must be equal, bit for bit.  Returns the count and what
         was measured: buffer rows that differ, the largest absolute
-        difference of a buffer entry, and the count's difference."""
+        difference of a buffer entry, and the count's difference (each
+        the larger of the two routes)."""
         torch = self.torch
-        got_buf = torch.full((cap, 2), -1, dtype=torch.int32, device=self.dev)
-        want_buf = got_buf.clone()
-        start = torch.full((), count, dtype=torch.int32, device=self.dev)
-        _, got = self.ek.compact_append(packed, got_buf, start, **offsets)
+        want_buf = torch.full((cap, 2), -1, dtype=torch.int32,
+                              device=self.dev)
         _, want = self.eref.compact_append_ref(packed, want_buf, count,
                                                **offsets)
-        torch.cuda.synchronize()
-        gap = (got_buf.long() - want_buf.long()).abs()
-        rows = int((gap.amax(dim=1) > 0).sum()) if cap else 0
-        err = int(gap.max()) if cap else 0
-        count_diff = int(got) - int(want)
-        check(count_diff == 0 and rows == 0,
-              f"compaction {what}: kernel differs from its plain version "
-              f"(count {int(got)} vs {int(want)}, {rows} buffer rows differ)")
-        return int(got), rows, err, count_diff
+        rows = err = count_diff = 0
+        for start in (torch.full((), count, dtype=torch.int32,
+                                 device=self.dev), count):
+            got_buf = torch.full((cap, 2), -1, dtype=torch.int32,
+                                 device=self.dev)
+            _, got = self.ek.compact_append(packed, got_buf, start, **offsets)
+            torch.cuda.synchronize()
+            gap = (got_buf.long() - want_buf.long()).abs()
+            rows = max(rows, int((gap.amax(dim=1) > 0).sum()) if cap else 0)
+            err = max(err, int(gap.max()) if cap else 0)
+            count_diff = max(count_diff, abs(int(got) - int(want)))
+            check(count_diff == 0 and rows == 0,
+                  f"compaction {what}: kernel differs from its plain version "
+                  f"(count {int(got)} vs {int(want)}, {rows} buffer rows "
+                  f"differ, count given as {type(start).__name__})")
+        return int(want), rows, err, count_diff
 
     def _random_words(self, rng, nl, nw, density):
         """int32 (nl, nw) mask on the card, each bit set at ``density``;
@@ -1487,30 +1504,59 @@ class Smoke:
         return (self.torch.from_numpy(np.ascontiguousarray(words)).to(self.dev),
                 int(bits.sum()))
 
+    def _sparse_words(self, rng, nl, nw, density):
+        """As ``_random_words`` for a mask too large to draw bit by bit:
+        about ``density`` of its bits, at distinct random positions."""
+        np = self.np
+        n_bits = nl * nw * 32
+        pos = np.unique(rng.integers(0, n_bits,
+                                     size=rng.binomial(n_bits, density)))
+        # distinct bits of a word never carry: the sum is their OR
+        words = np.bincount(pos >> 5, weights=np.ldexp(1.0, pos & 31),
+                            minlength=nl * nw).astype(np.uint64)
+        words = words.astype(np.uint32).view(np.int32).reshape(nl, nw)
+        return self.torch.from_numpy(words).to(self.dev), len(pos)
+
     def _compaction_fixtures(self):
         """(a): random masks from 1 word to 2**14 x 2**12 bits at densities
-        0 to 1, with room to spare, with overflow, with offsets and a
-        non-zero starting count."""
+        0 to 1, and a production band's 262144 x 128 words at densities 0,
+        2e-6 and 1e-3, with room to spare, with overflow, with offsets and
+        a non-zero starting count; then a count 100 below 2**31, which
+        wraps and writes nothing."""
         np = self.np
         rng = np.random.default_rng(15)
         cases = 0
-        for nl, nw in ((1, 1), (7, 3), (33, 5), (64, 12), (300, 17),
-                       (1 << 14, 128)):
-            for density in (0.0, 1e-3, 0.5, 1.0):
+        shapes = [(nl, nw, d) for nl, nw in ((1, 1), (7, 3), (33, 5),
+                                             (64, 12), (300, 17),
+                                             (1 << 14, 128))
+                  for d in (0.0, 1e-3, 0.5, 1.0)]
+        shapes += [(1 << 18, 128, d) for d in (0.0, 2e-6, 1e-3)]
+        for nl, nw, density in shapes:
+            if nl * nw > 1 << 21:
+                packed, n = self._sparse_words(rng, nl, nw, density)
+            else:
                 packed, n = self._random_words(rng, nl, nw, density)
-                check(self.compaction_compare(packed, 0, what="count only")[0]
-                      == n, f"compaction {nl}x{nw}: count != {n}")
-                for cap, offs in ((n + 16, {}), (n // 2, {}),
-                                  (n + 16, dict(row_offset=4096,
-                                                col_offset=262112))):
-                    got, _, _, _ = self.compaction_compare(
-                        packed, cap, count=7, what=f"{nl}x{nw} d{density}",
-                        **offs)
-                    check(got == n + 7, f"compaction {nl}x{nw}: count {got}")
-                    cases += 1
+            check(self.compaction_compare(packed, 0, what="count only")[0]
+                  == n, f"compaction {nl}x{nw}: count != {n}")
+            for cap, offs in ((n + 16, {}), (n // 2, {}),
+                              (n + 16, dict(row_offset=4096,
+                                            col_offset=262112))):
+                got, _, _, _ = self.compaction_compare(
+                    packed, cap, count=7, what=f"{nl}x{nw} d{density}",
+                    **offs)
+                check(got == n + 7, f"compaction {nl}x{nw}: count {got}")
+                cases += 1
+        near = (1 << 31) - 100
+        packed, n = self._random_words(rng, 40, 9, 0.3)
+        got, _, _, _ = self.compaction_compare(packed, 6000, count=near,
+                                               what="count near 2^31")
+        check(got == near + n - (1 << 32),
+              f"compaction from 2^31 - 100: count {got}, want the int32 wrap")
+        cases += 1
         log(f"phase 7: compaction kernel == plain version on {cases} "
-            f"fixtures (buffers and counts bit for bit; up to 2^14 x 2^12 "
-            f"bits, overflow, offsets)")
+            f"fixtures, count as a tensor and as an int (buffers and counts "
+            f"bit for bit; up to 2^14 x 2^12 bits and the production band's "
+            f"2^18 x 2^12, overflow, offsets, a count wrapping past 2^31)")
 
     @staticmethod
     def _ring_events(spans):
@@ -1899,22 +1945,26 @@ class Smoke:
 
     def _time_compaction(self, packed, cap, col_offset):
         """Events, one-call and device ms of the compaction kernel on
-        ``packed`` (into a fresh buffer each call's worth of slots), its
-        plain version's and ``torch.nonzero``'s on the unpacked bool band,
-        and its bytes bound: the mask read once, 8 bytes a pair written,
-        and the block sums' and bases' passes (written, read, written,
-        read)."""
+        ``packed`` (into one buffer of ``cap`` slots, the count given as
+        the int 0, as the ring gives it), its plain version's and
+        ``torch.nonzero``'s on the unpacked bool band, the host's enqueue
+        time a call (no synchronisation), the profiler's kernels a call,
+        and its bytes bound (``bytes_bound``: the mask read once, 8 bytes
+        a pair written, 8 bytes of counts).  A device reading below the
+        bound is not the kernel's time: it is logged and kept as None."""
         torch = self.torch
         nl, nw = packed.shape
         buf = torch.full((cap, 2), -1, dtype=torch.int32, device=self.dev)
-        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
         plain_buf = buf.clone()
 
         def kernel():
-            return self.ek.compact_append(packed, buf, zero,
+            return self.ek.compact_append(packed, buf, 0,
                                           col_offset=col_offset)
         count = int(kernel()[1])
         ms = self.time_ms(kernel)
+        torch.cuda.synchronize()
+        host_us = 1e3 * self.host_ms(kernel, n=200)
+        torch.cuda.synchronize()
         plain_ms = self.time_ms(lambda: self.eref.compact_append_ref(
             packed, plain_buf, 0, col_offset=col_offset), runs=5)
         # the library yardstick's input: the band unpacked to bools, made
@@ -1928,25 +1978,47 @@ class Smoke:
         check(int(dense.sum()) == count, "unpacked band: wrong popcount")
         library_ms = self.time_ms(lambda: torch.nonzero(dense), runs=5)
         del dense
-        blocks = -(-nl * nw // 4096)
-        nbytes = 4 * nl * nw + 8 * min(count, cap) + 4 * 4 * blocks + 8
-        device, parts = self.device_ms(kernel, by_name=True)
-        calls = self.device_calls
+        nbytes = self.ek.bytes_bound(nl, nw, count, cap)
+        # a short window can come back empty (the profiler lost its
+        # records): up to three tries
+        n_prof = 20
+        for _ in range(3):
+            device, parts = self.device_ms(kernel, n=n_prof, by_name=True)
+            calls = self.device_calls
+            if calls and device is not None:
+                break
+            log(f"compaction {nl}x{nw}: the profiler recorded {calls} in "
+                f"{n_prof} calls: records lost")
+        per_call = (sum(calls.values()) / n_prof
+                    if calls and device is not None else None)
+        check(per_call in (None, 1), f"compaction {nl}x{nw}: the profiler "
+              f"saw {calls} device activities in {n_prof} calls, want one "
+              f"kernel a call")
+        if per_call is None:
+            log(f"compaction {nl}x{nw}: kernels a call not measured")
         bound_ms = 1e3 * nbytes / self.bw
+        # the mask is read whole: less than its bytes over the HBM rate is
+        # a profiler reading, not the kernel's time
+        for name, part in list(parts.items()):
+            if part < bound_ms:
+                log(f"compaction {nl}x{nw}: profiler device time of {name} "
+                    f"{part:.6f} ms below the bytes bound {bound_ms:.6f} "
+                    f"ms: not measured")
+                parts[name] = None
         if device is not None and device < bound_ms:
-            # the mask is read whole: less than its bytes over the HBM rate
-            # is a profiler reading, not the kernel's time
             log(f"compaction {nl}x{nw}: profiler device time {device:.6f} ms "
                 f"below the bytes bound {bound_ms:.6f} ms: not measured")
             device = None
         return {"mask": [nl, nw], "candidates": count, "cap": cap,
                 "ms": ms, "ms_one_call": self.time_ms(kernel, reps=1),
                 "device_ms": device, "device_parts_ms": parts,
-                "device_calls": calls,
+                "device_calls": calls, "kernels_per_call": per_call,
+                "host_enqueue_us": host_us,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "library": "torch.nonzero on the unpacked bool band",
                 "bound_ms": bound_ms, "bound_by": "bytes",
-                "bytes": nbytes}
+                "bytes": nbytes,
+                "half_bound_reached": ms <= 2 * bound_ms}
 
     def _compaction_entry(self):
         """The compaction kernel's row of the kernels line, timed at the
@@ -1973,7 +2045,8 @@ class Smoke:
             max_abs_err=max(err, err_p), mismatches=rows + rows_p,
             count_diff=[dn, dn_p], **{k: main[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "ms_one_call", "device_ms", "mask", "candidates")},
+                "ms_one_call", "device_ms", "host_enqueue_us",
+                "kernels_per_call", "mask", "candidates")},
             production_band=prod))
         for entry in self.kernels[:2]:
             key = "cnf_join" if entry["name"] == "cnf_join_block" \
@@ -2081,8 +2154,8 @@ class Smoke:
         self.mesh["world2"] = {}
         for shape in ("2,1,1", "1,2,1"):
             t0 = time.perf_counter()
-            rep = run_dryrun(shape, "--device", "cuda", "--cell", str(n),
-                             "--cell-r-chunk", "4096", timeout=300)
+            rep = run_dryrun(shape, "--cell", str(n), "--cell-r-chunk",
+                             "4096", device="cuda", timeout=300)
             wall = time.perf_counter() - t0
             cell, coll = rep["cell"], rep["collectives"]
             check(cell["candidates"] == want and cell["steps"] == steps,

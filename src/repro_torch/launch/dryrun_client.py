@@ -20,10 +20,10 @@ REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", ".."))
 
 
-def run_dryrun(mesh: str, *extra: str, timeout: int = 420,
-               repo: str = REPO_ROOT) -> dict:
-    """Run the multipod dry-run on ``mesh`` ("P,D,M"); returns the parsed
-    report.  Raises AssertionError (with captured output) when the
+def run_dryrun(mesh: str, *extra: str, device: str = "cpu",
+               timeout: int = 420, repo: str = REPO_ROOT) -> dict:
+    """Run the multipod dry-run on ``mesh`` ("P,D,M") with every rank on
+    ``device`` ("cpu" or "cuda"); returns the parsed report.  Raises AssertionError (with captured output) when the
     subprocess exits nonzero, reports a failed status, or emits no
     marker line; ``subprocess.TimeoutExpired`` past ``timeout`` seconds
     (the dry-run's own world timeout is shorter, so a hung rank fails the
@@ -33,7 +33,8 @@ def run_dryrun(mesh: str, *extra: str, timeout: int = 420,
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.multipod_dryrun",
-         "--mesh", mesh, "--timeout", str(max(30, timeout - 30)), *extra],
+         "--mesh", mesh, "--device", device,
+         "--timeout", str(max(30, timeout - 30)), *extra],
         capture_output=True, text=True, timeout=timeout, cwd=repo, env=env)
     rep = None
     for line in proc.stdout.splitlines():

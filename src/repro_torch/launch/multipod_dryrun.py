@@ -30,15 +30,17 @@ the JAX package's dry-run checks (``repro.launch.multipod_dryrun``):
     CUDA), and
     ``bytes_to_host`` exactly 12 B a rank a step + 8 B a pair.
 
-Every rank runs on the CPU by default (the kernels' plain versions); with
-``--device cuda`` every rank runs on ``cuda:0`` (several ranks may share
-one card: the collectives are gloo's, on the host) and the kernels run.
+Every rank runs on ``cuda:0`` by default (several ranks may share one
+card: the collectives are gloo's, on the host) and the kernels run; asking
+for ``cuda`` without a card raises.  ``--device cpu`` runs every rank on
+the CPU (the kernels' plain versions).
 
 Usage:
 
-  PYTHONPATH=src python -m repro_torch.launch.multipod_dryrun --mesh 2,2,2
   PYTHONPATH=src python -m repro_torch.launch.multipod_dryrun --mesh 2,1,1 \\
-      --device cuda --cell 262144
+      --cell 262144
+  PYTHONPATH=src python -m repro_torch.launch.multipod_dryrun --mesh 2,2,2 \\
+      --device cpu
 
 Prints one JSON report on stdout (marker line ``MULTIPOD_DRYRUN_JSON``,
 see ``launch/dryrun_client.py``); exits nonzero on any failed check, or
@@ -361,13 +363,16 @@ def _collectives(ranks: list) -> dict:
         "ops": ledgers[0]["ops"], "findings": findings}
 
 
-def run_world(shape: tuple, *, device: str = "cpu", kernel: bool = False,
+def run_world(shape: tuple, *, device: str = "cuda", kernel: bool = False,
               skip_serving: bool = False, cell: int = 0,
               cell_r_chunk: int = 4096, detail: bool = False,
               timeout: float = 300.0) -> dict:
     """Spawn the P·D·M-rank world, run the checks, and return the report
-    (``status`` "ok" or "failed")."""
+    (``status`` "ok" or "failed").  Raises when ``device`` is "cuda" and
+    torch sees no card."""
     import torch.multiprocessing as mp
+    from repro_torch.device import resolve_device
+    resolve_device(device)
     n = shape[0] * shape[1] * shape[2]
     a = dict(mesh=tuple(shape), device=device, kernel=kernel,
              skip_serving=skip_serving, cell=cell, cell_r_chunk=cell_r_chunk,
@@ -441,9 +446,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", default="2,2,2",
                     help="P,D,M join-mesh shape: a world of P*D*M ranks")
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where every rank runs (cuda: all on cuda:0, "
-                         "kernels on)")
+                         "kernels on; cpu: the kernels' plain versions)")
     ap.add_argument("--kernel", action="store_true",
                     help="on the CPU, count evals by the kernel's tiles "
                          "(use_kernel=True) instead of whole sub-bands")

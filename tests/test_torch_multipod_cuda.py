@@ -50,8 +50,8 @@ def test_world_of_one_mesh_on_the_card_matches_cpu(cuda_device):
 
 @pytest.mark.parametrize("shape", ["2,1,1", "1,2,1"])
 def test_two_ranks_share_the_card(cuda_device, shape):
-    rep = run_dryrun(shape, "--device", "cuda", "--cell", "16384",
-                     "--cell-r-chunk", "4096", timeout=400)
+    rep = run_dryrun(shape, "--cell", "16384", "--cell-r-chunk", "4096",
+                     device="cuda", timeout=400)
     assert rep["use_kernel"] is True
     cell = rep["cell"]
     assert cell["steps"] == 4 and cell["shard_rows"] == 8192
