@@ -19,7 +19,9 @@ the join mesh (the ring L-sharded over ranks) at world sizes 1 and 2, and
 then the model zoo's serving path (dense GQA transformers through
 ``ServeEngine``, phi4-mini-3.8b at full width through ``launch.serve``),
 and then its training path (AdamW train steps with checkpoints and
-restart, phi4-mini-3.8b at full width).
+restart, phi4-mini-3.8b at full width), and last the reference's
+invariant checks over the port (static analysis, the recall guarantee,
+conjunct-order invariance, the lock witness) on the card.
 
 Phases, in order; any failure exits non-zero before the last line:
   1. the card (nvidia-smi name and power limit), the kernel builds and
@@ -202,7 +204,24 @@ Phases, in order; any failure exits non-zero before the last line:
      expert sums in the EP decode's order (``_ep_full_width``; its ranks
      run ``_ep_full_width_rank``, so the ranks import this file); (c) a
      world-1 checkpoint restored onto (1, 2), and ``launch.train --mesh
-     single`` refused at world 1.
+     single`` refused at world 1;
+ 12. the reference's invariants over the port, each sub-phase's wall and
+     launches printed (counts set to 0 just before it, read just after):
+     (a) ``python -m repro_torch.analysis --check`` exits 0 on the port's
+     tree (lock graph and lint rules), every waived hold printed with its
+     reason; (b) the recall guarantee through ``fdj_join`` on engine
+     ``cuda``, barrier mode, 25 seeds x biodex and police: failure rate
+     <= delta + 2 sigma and mean recall >= target, and on the 5 smoke
+     seeds theta equal to the CPU port's and candidates equal to its but
+     for pairs within the f32 band; (c) ``representative_cnf`` on
+     police_records 74 x 74 and 1400 x 1400 through ``cuda`` and
+     ``sharded``: every conjunct order, early reject on and off, one
+     candidate set (the numpy engine's but for the f32 band); (d) the
+     3-tenant ``sharded`` fleet under ``lock_witness(guard_blocking=
+     True)``, whose guard wraps the CUDA syncs and the ring's pulls,
+     planning on an empty curve cache: no order cycle observed or merged
+     into the static graph, no blocking pull under a lock, equal pairs
+     for the tenants sharing a corpus.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -213,7 +232,8 @@ Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 path, where kernels A and B give theirs as ``launches_ring`` -- and
 ``launches_serving`` per serving path, ``launches_zoo``,
 ``launches_moe``, ``launches_ssm``, ``launches_train`` and
-``launches_model_mesh`` 0), and as its last line
+``launches_model_mesh`` 0, and ``launches_invariants`` per sub-phase of
+phase 12), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -295,6 +315,7 @@ def main():
     ctx.phase9_ssm()
     ctx.phase10_train()
     ctx.phase11_model_mesh()
+    ctx.phase12_invariants()
     ctx.serving_launches()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -3687,6 +3708,304 @@ class Smoke:
         log("phase 11 (c): checkpoint world 1 -> (1, 2) and --mesh single: "
             + json.dumps(out))
         return out
+
+    # -- phase 12: the reference's invariants on the card -------------------
+    def phase12_invariants(self):
+        """The reference's invariant checks over the port, on the card: (a)
+        the static analysis of ``src/repro_torch`` (``python -m
+        repro_torch.analysis --check``) clean, its waivers printed; (b)
+        the recall guarantee through ``fdj_join`` on engine ``cuda``; (c)
+        conjunct-order invariance on ``cuda`` and ``sharded``; (d) the
+        3-tenant ``sharded`` fleet under the lock witness with its pull
+        guard armed.  Each sub-phase's wall and kernel launches (counts
+        set to 0 just before it, read just after) are printed and added
+        to the kernels line as ``launches_invariants``."""
+        t0 = time.perf_counter()
+        self.inv = {"walls_s": {}, "launches": {}}
+        for name, fn in (("analysis", self._inv_analysis),
+                         ("guarantee", self._inv_guarantee),
+                         ("order", self._inv_order),
+                         ("fleet", self._inv_fleet)):
+            self.reset_launches()
+            t = time.perf_counter()
+            fn()
+            wall = time.perf_counter() - t
+            self.inv["walls_s"][name] = wall
+            self.inv["launches"][name] = counts = self.read_launches()
+            log(f"phase 12 ({name}): wall {wall:.2f} s, launches "
+                + json.dumps(counts))
+        keys = {"cnf_join_block": "cnf_join",
+                "threshold_sweep": "threshold_sweep",
+                "compact_append": "compact"}
+        for entry in self.kernels:
+            entry["launches_invariants"] = {
+                name: counts[keys[entry["name"]]]
+                for name, counts in self.inv["launches"].items()}
+        self.inv["wall_s"] = time.perf_counter() - t0
+        log(f"phase 12: invariants ok ({self.inv['wall_s']:.1f} s, "
+            f"{self.smi})")
+
+    def _inv_analysis(self):
+        """(a) The lock graph and the lint rules over the port's tree, in a
+        subprocess, exactly as a user runs them: exit 0, and every waived
+        hold printed with its reason."""
+        dot = os.path.join(ROOT, "build", "lockgraph.dot")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--check",
+             "--dot", dot], cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+            capture_output=True, text=True, timeout=120)
+        out = proc.stdout
+        check(proc.returncode == 0 and "analysis: clean" in out,
+              f"phase 12 (a): analysis --check exit {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        waived = [ln.strip() for ln in out.splitlines() if "— waived:" in ln]
+        check(any("PlanLibrary.lease" in w for w in waived)
+              and any("_HOST_MESH_LOCK" in w for w in waived),
+              f"phase 12 (a): waivers not printed: {out[-2000:]}")
+        head = next(ln for ln in out.splitlines() if ln.startswith("lock"
+                                                                   " nodes"))
+        log(f"phase 12 (a): python -m repro_torch.analysis --check: exit 0, "
+            f"{head.strip()}, {len(waived)} waived holds:")
+        for w in waived:
+            log(f"phase 12 (a):   {w[:160]}")
+
+    def _inv_guarantee(self):
+        """(b) Recall >= T with failure rate <= delta + 2 sigma and mean
+        recall >= T over 25 seeds x biodex and police, barrier mode, through
+        ``fdj_join`` on engine ``cuda`` (tests/test_torch_guarantees.py's
+        sweep); on the 5 smoke seeds (biodex 0-4) each trial's theta equals
+        the CPU port's and its candidates equal the CPU port's but for
+        pairs within the f32 band of a threshold."""
+        import math
+        import types
+        np = self.np
+        from repro_torch.core import join as join_mod
+        from repro_torch.core.join import FDJConfig, fdj_join
+        from repro_torch.data import synth
+        from repro_torch.data.simulated_llm import (SimulatedExtractor,
+                                                    SimulatedProposer)
+        target, delta = 0.9, 0.1
+        datasets = {
+            "biodex": lambda s: synth.biodex(n_notes=150, n_terms=40, seed=s),
+            "police": lambda s: synth.police_records(
+                n_incidents=35, reports_per_incident=2, seed=s)}
+        seen = []
+        evaluate = join_mod._evaluate_cnf
+
+        def recording(feats, sc, theta, cfg, order=None):
+            cands, stats = evaluate(feats, sc, theta, cfg, order)
+            seen.append(types.SimpleNamespace(
+                feats=feats, sc_local=sc, theta=np.array(theta),
+                conjunct_order=order, cands=cands))
+            return cands, stats
+
+        def trial(name, seed, device):
+            ds = datasets[name](seed)
+            cfg = FDJConfig(recall_target=target, delta=delta, seed=seed,
+                            mc_trials=5000, engine="cuda", device=device)
+            seen.clear()
+            res = fdj_join(ds, ds.make_oracle(), SimulatedProposer(ds),
+                           SimulatedExtractor(ds, seed=seed), cfg)
+            return res, (seen[0] if seen else None)
+
+        recalls, smoke = [], []
+        join_mod._evaluate_cnf = recording
+        try:
+            for name in datasets:
+                for seed in range(25):
+                    t = time.perf_counter()
+                    res, got = trial(name, seed, "cuda")
+                    wall = time.perf_counter() - t
+                    recalls.append(res.recall)
+                    if name != "biodex" or seed >= 5:
+                        continue
+                    cpu, want = trial(name, seed, "cpu")
+                    what = f"phase 12 (b): biodex seed {seed}"
+                    check(np.array_equal(res.theta, cpu.theta),
+                          f"{what}: theta {res.theta} on the card, "
+                          f"{cpu.theta} on the CPU")
+                    check((got is None) == (want is None),
+                          f"{what}: one plan is degenerate")
+                    diff = set() if got is None else self._candidates_in_band(
+                        got.cands, want.cands, want.feats, want, what)
+                    smoke.append({"seed": seed, "recall": res.recall,
+                                  "candidates": res.candidate_count,
+                                  "cpu_candidates": cpu.candidate_count,
+                                  "differ_in_band": len(diff),
+                                  "dollars": res.cost.total,
+                                  "cpu_dollars": cpu.cost.total,
+                                  "wall_s": wall})
+        finally:
+            join_mod._evaluate_cnf = evaluate
+        trials = len(recalls)
+        fails = sum(r < target for r in recalls)
+        slack = 2.0 * math.sqrt(delta * (1.0 - delta) / trials)
+        mean = float(np.mean(recalls))
+        out = {"trials": trials, "fails": fails,
+               "bound": delta + slack, "mean_recall": mean,
+               "min_recall": min(recalls), "smoke": smoke}
+        log("phase 12 (b): recall guarantee on the card, engine cuda, "
+            "barrier: " + json.dumps(out))
+        check(trials >= 50 and fails / trials <= delta + slack
+              and mean >= target,
+              f"phase 12 (b): failure rate {fails}/{trials} over "
+              f"{delta + slack:.3f} or mean recall {mean} under {target}")
+
+    def _inv_order(self):
+        """(c) ``representative_cnf`` on police_records, ragged 74 x 74
+        (seed 5, the CPU test's tiles) and 1400 x 1400 (the engines'
+        default tiles), through ``cuda`` and ``sharded`` on the card: every
+        conjunct order, early reject on and off, and both engines give one
+        candidate set; it differs from the numpy engine's only within the
+        f32 band; the empty scaffold gives the cross product."""
+        import itertools
+        import types
+        np = self.np
+        from repro_torch.core.costs import CostLedger
+        from repro_torch.core.join import apply_conjunct_order
+        from repro_torch.data import synth
+        from repro_torch.data.cnf_fixtures import representative_cnf
+        from repro_torch.data.simulated_llm import SimulatedExtractor
+        from repro_torch.engine import get_engine
+        small = {"cuda": dict(tl=32, tr=64, l_block=32),
+                 "sharded": dict(tl=32, tr=32, r_chunk=64)}
+        rows = []
+        for n_inc, opts in ((37, small), (700, {"cuda": {}, "sharded": {}})):
+            ds = synth.police_records(n_incidents=n_inc,
+                                      reports_per_incident=2, seed=5)
+            specs, clauses, thetas = representative_cnf(ds)
+            feats = SimulatedExtractor(ds).materialize(specs, CostLedger())
+            theta = np.asarray(thetas, float)
+            base, evals, runs = None, {}, 0
+            for engine in ("cuda", "sharded"):
+                for order in itertools.permutations(range(len(clauses))):
+                    oc, ot = apply_conjunct_order(clauses, theta, list(order))
+                    for er in (True, False):
+                        res = get_engine(engine, early_reject=er,
+                                         device="cuda", **opts[engine]
+                                         ).evaluate(feats, oc, list(ot))
+                        runs += 1
+                        if base is None:
+                            base = res.candidates
+                        check(res.candidates == base,
+                              f"phase 12 (c): {ds.n_l} x {ds.n_r}, {engine}, "
+                              f"order {order}, early_reject {er}: "
+                              f"{len(res.candidates)} candidates, want "
+                              f"{len(base)}")
+                        evals.setdefault(f"{engine} er={er}", set()).add(
+                            res.stats.conjunct_evals)
+                empty = get_engine(engine, device="cuda",
+                                   **opts[engine]).evaluate(feats, [], [])
+                check(len(empty.candidates) == ds.n_l * ds.n_r,
+                      f"phase 12 (c): {engine} empty scaffold")
+            ref = get_engine("numpy").evaluate(feats, clauses, thetas)
+            plan = types.SimpleNamespace(
+                sc_local=types.SimpleNamespace(clauses=clauses),
+                theta=theta, conjunct_order=None)
+            diff = self._candidates_in_band(base, ref.candidates, feats, plan,
+                                            f"phase 12 (c) {ds.n_l} x "
+                                            f"{ds.n_r}")
+            check(len(base) > 0, "phase 12 (c): no candidate")
+            rows.append({"shape": [ds.n_l, ds.n_r], "clauses": len(clauses),
+                         "evaluations": runs, "candidates": len(base),
+                         "numpy_differ_in_band": len(diff),
+                         "conjunct_evals": {k: sorted(v)
+                                            for k, v in evals.items()}})
+        log("phase 12 (c): candidate sets identical under every conjunct "
+            "order and early-reject setting, cuda == sharded: "
+            + json.dumps(rows))
+
+    def _inv_fleet(self):
+        """(d) tests/test_torch_analysis_witness.py's stress test on the
+        card: 3 tenants on engine ``sharded`` (two sharing a corpus), 2
+        rounds of racing cold/warm queries, under ``lock_witness(
+        guard_blocking=True)``, whose guard wraps ``torch.cuda.synchronize``,
+        the CUDA event and stream syncs and the ring's two pull points: no
+        observed order cycle, none when merged into the static graph, no
+        blocking pull under a held lock, equal pairs for the tenants that
+        share a corpus.  The tenants plan on an empty curve cache, as in a
+        fresh checkout, so their workers compute and write the same
+        Monte-Carlo curves at once."""
+        import tempfile
+        torch = self.torch
+        from repro_torch.analysis.lockgraph import build_lock_graph
+        from repro_torch.analysis.witness import lock_witness
+        from repro_torch.core.join import FDJConfig
+        from repro_torch.data import synth
+        from repro_torch.engine import sharded
+        from repro_torch.serving.fleet import JoinFleet
+        static = build_lock_graph()
+        check(not static.findings, f"phase 12 (d): static findings "
+              f"{[str(f) for f in static.findings]}")
+        calls = {"pulls": 0, "event_syncs": 0}
+        raw_wait = sharded._Transfers.__dict__["wait"]
+        raw_sync = torch.cuda.Event.__dict__["synchronize"]
+
+        def counted_wait(step):
+            calls["pulls"] += 1
+            return raw_wait.__func__(step)
+
+        def counted_sync(event):
+            calls["event_syncs"] += 1
+            return raw_sync(event)
+
+        def police(seed):
+            return synth.police_records(n_incidents=40,
+                                        reports_per_incident=2, seed=seed)
+
+        cold = tempfile.mkdtemp(prefix="adj_cold_",
+                                dir=os.path.join(ROOT, "build"))
+        cache_env = os.environ.get("REPRO_TORCH_ADJ_CACHE")
+        os.environ["REPRO_TORCH_ADJ_CACHE"] = cold
+        sharded._Transfers.wait = staticmethod(counted_wait)
+        torch.cuda.Event.synchronize = counted_sync
+        try:
+            with lock_witness(guard_blocking=True) as w:
+                cfg = FDJConfig(engine="sharded", device="cuda", seed=0,
+                                mc_trials=4000, engine_opts=dict(
+                                    tl=32, tr=32, r_chunk=64))
+                with JoinFleet(max_concurrent=3, device="cuda") as fleet:
+                    fleet.add_tenant("a", police(3), cfg)
+                    fleet.add_tenant("b", police(3), cfg)
+                    fleet.add_tenant("c", police(7), cfg)
+                    futures = [(name, fleet.submit(name))
+                               for _ in range(2) for name in ("a", "b", "c")]
+                    pairs = {}
+                    for name, fut in futures:
+                        pairs.setdefault(name, []).append(
+                            fut.result(timeout=300).pairs)
+                    summary = fleet.drain()
+        finally:
+            sharded._Transfers.wait = raw_wait
+            torch.cuda.Event.synchronize = raw_sync
+            if cache_env is None:
+                os.environ.pop("REPRO_TORCH_ADJ_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_ADJ_CACHE"] = cache_env
+            shutil.rmtree(cold, ignore_errors=True)
+        by_site = {(n.file, n.line) for n in static.nodes.values()}
+        mapped = [s for s in w.sites if (s.file, s.line) in by_site]
+        out = {"completed": summary["completed"],
+               "failed": summary["failed"], "pulls": calls["pulls"],
+               "event_syncs": calls["event_syncs"],
+               "sites": len(w.sites), "sites_mapped": len(mapped),
+               "edges": len(w.edges), "order_cycles": w.order_cycles(),
+               "cycles_with_static": w.check_against(static),
+               "blocking_violations": w.blocking_violations,
+               "pairs": {k: [len(p) for p in v] for k, v in pairs.items()}}
+        log("phase 12 (d): 3-tenant sharded fleet under the lock witness: "
+            + json.dumps(out))
+        check(summary["completed"] == 6 and summary["failed"] == 0,
+              f"phase 12 (d): fleet summary {summary}")
+        check(pairs["a"][0] == pairs["a"][1] == pairs["b"][0]
+              and pairs["c"][0] == pairs["c"][1],
+              "phase 12 (d): tenants sharing a corpus disagree")
+        check(calls["pulls"] > 0 and calls["event_syncs"] > 0 and mapped,
+              "phase 12 (d): the ring's pulls did not pass the guard")
+        check(not out["order_cycles"] and not out["cycles_with_static"]
+              and not out["blocking_violations"],
+              "phase 12 (d): the witness found a lock-order cycle or a "
+              "blocking pull under a lock")
 
 
 # -- phase 11 (b): helpers, and the job each rank of its world runs ---------

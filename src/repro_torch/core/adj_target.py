@@ -31,6 +31,7 @@ import hashlib
 import json
 import math
 import os
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -129,10 +130,12 @@ def failure_curve(k_plus: int, r: int, n_plus: int, target: float,
     tail = counts[::-1].cumsum()[::-1] / n_trials
     if cache:
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        # written whole, then renamed: the ranks of a world compute the
-        # same curve at once, and one must never load another's half
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
+        # written whole, then renamed: the ranks of a world, and a fleet's
+        # workers within one process, compute the same curve at once; one
+        # must never load another's half, nor rename another's file
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                                   prefix=f"{key}.", suffix=".tmp")
+        with os.fdopen(fd, "wb") as f:
             np.save(f, tail)
         os.replace(tmp, path)
     return tail

@@ -245,7 +245,8 @@ def ordered_conjuncts(cd: np.ndarray, theta: np.ndarray,
     (pass_rate, cost, original index) so the order is deterministic.
     Returns a permutation of range(C) — a pure *evaluation* order: the
     conjunction commutes, so the candidate set is invariant under it
-    (the JAX package's tests prove it per backend).
+    (tests/test_torch_conjunct_order.py proves it on every engine of the
+    port on the CPU, tests/test_torch_conjunct_order_cuda.py on the card).
     """
     c = cd.shape[1]
     if c != len(clauses) or theta.shape[0] != c:
