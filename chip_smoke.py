@@ -221,7 +221,25 @@ Phases, in order; any failure exits non-zero before the last line:
      True)``, whose guard wraps the CUDA syncs and the ring's pulls,
      planning on an empty curve cache: no order cycle observed or merged
      into the static graph, no blocking pull under a lock, equal pairs
-     for the tenants sharing a corpus.
+     for the tenants sharing a corpus;
+ 13. the join fleet over a world of ranks (``phase13_fleet_world``):
+     ``launch.serve_fleet``'s ``run_fleet``, engine ``sharded``, on
+     world 1 in this process and on world 2 (two ranks sharing the card
+     over gloo, ``launch.ep_world.run_world`` with
+     ``_fleet_world_rank``), rank 0 ordering admissions and every
+     collective: (a) 3 tenants on one corpus, products 2800 x 2800
+     (phase 6's), 3 workers; (b) 2 tenants on corpora of their own,
+     products 1400 x 1400 at seeds 0 and 1, 2 workers; one (cold) query
+     a tenant.  Rank 0's per-query pairs, theta and candidates equal
+     world 1's (and in (a) phase 6's ``cuda`` engine's) but for
+     phase 6's corpus's pairs in the f32 band, the fleet's dollars
+     (``math.fsum`` of every query's) equal world 1's; shared: one plan
+     built on every rank and a cold query at $0 extraction and
+     labelling; ``bytes_to_host`` 12 B a rank a band step + 8 B a pair;
+     every rank agrees on rank 0's admission and grant sequences, band
+     steps, interleaves and collective calls by group (``ranks_agree``);
+     each query's wall on each rank against world 1, each rank's
+     launches of the three kernels and the control records printed.
 
 A mask bit may differ from the plain version only for a pair whose float64
 distance lies within D * 2**-24 of a threshold (f32 dot products summed in
@@ -232,8 +250,9 @@ Prints the card line, a ``{"kernels": [...]}`` line (each kernel's
 path, where kernels A and B give theirs as ``launches_ring`` -- and
 ``launches_serving`` per serving path, ``launches_zoo``,
 ``launches_moe``, ``launches_ssm``, ``launches_train`` and
-``launches_model_mesh`` 0, and ``launches_invariants`` per sub-phase of
-phase 12), and as its last line
+``launches_model_mesh`` 0, ``launches_invariants`` per sub-phase of
+phase 12, and ``launches_fleet_world`` per sub-phase and world of phase
+13), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -316,6 +335,7 @@ def main():
     ctx.phase10_train()
     ctx.phase11_model_mesh()
     ctx.phase12_invariants()
+    ctx.phase13_fleet_world()
     ctx.serving_launches()
     log(json.dumps({"kernels": ctx.kernels}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -1161,6 +1181,7 @@ class Smoke:
         from repro_torch.serving.join_service import JoinService
         svc = JoinService(full, FDJConfig(engine="cuda"))
         cold, row = self.serve_query(svc, "cold query")
+        self.serve_cold = cold          # phase 13 holds its fleets to it
         strips = self._strips(full.n_l)
         check(row["launches"]["cnf_join"] == strips and
               row["launches"]["threshold_sweep"] >= 1,
@@ -1306,18 +1327,27 @@ class Smoke:
 
     def _serve_fleet(self, full):
         """Two tenants over one store on the card: a concurrent run (two
-        worker threads launching both kernels) gives the serial run's pairs
+        worker threads launching kernel A) gives the serial run's pairs
         byte for byte; the second tenant's cold query rides the first's
-        planes ($0 extraction, dedup hits)."""
+        planes ($0 extraction, dedup hits).  Concurrently the two cold
+        queries race for the store, so exactly one of them pays the
+        extraction and the other rides.  The concurrent run takes the
+        serial run's plan: cold plans racing in a fleet, with kernel B
+        launched inside it, run on the card in phase 13 (a) (and in
+        phase 12 (d))."""
         from repro_torch.core.join import FDJConfig
         from repro_torch.serving.fleet import JoinFleet
         t0 = time.perf_counter()
         runs = {}
+        self.fleet_plans = None
         for name, workers in (("serial", 1), ("concurrent", 2)):
             self.reset_launches()
             with JoinFleet(max_concurrent=workers) as fleet:
-                # phase 7's fleet reuses this plan (it plans nothing)
-                self.fleet_plans = fleet.plan_library
+                # the concurrent run and phase 7's fleet reuse the serial
+                # run's plan (they plan nothing)
+                if self.fleet_plans is None:
+                    self.fleet_plans = fleet.plan_library
+                fleet.plan_library = self.fleet_plans
                 for tenant in ("a", "b"):
                     fleet.add_tenant(tenant, full, FDJConfig(engine="cuda"))
                 if workers == 1:
@@ -1331,13 +1361,16 @@ class Smoke:
             launches = self.read_launches()
             check(launches["cnf_join"] > 0 and summary["failed"] == 0,
                   f"fleet {name}: {launches}, {summary['failed']} failed")
-            second = res[1]
-            check(second.cost.inference == 0.0 and
-                  second.cost.plane_dedup_hits >= 1,
-                  f"fleet {name}: tenant b's cold query paid extraction "
-                  f"(${second.cost.inference}) or had no dedup hit")
-            log(f"phase 6: fleet {name}: launches {launches}, tenant b cold "
-                f"query dedup hits {second.cost.plane_dedup_hits}, "
+            paid = [r.cost.inference > 0 for r in res[:2]]
+            check(paid == [True, False] if workers == 1 else sum(paid) == 1,
+                  f"fleet {name}: extraction paid by the cold queries "
+                  f"${[r.cost.inference for r in res[:2]]}: want tenant a's "
+                  f"only (serial), exactly one of the two (concurrent)")
+            second = res[paid.index(False)]
+            check(second.cost.plane_dedup_hits >= 1,
+                  f"fleet {name}: the riding cold query had no dedup hit")
+            log(f"phase 6: fleet {name}: launches {launches}, the riding "
+                f"cold query's dedup hits {second.cost.plane_dedup_hits}, "
                 f"extraction ${second.cost.inference}, walls "
                 f"{[round(r.wall_s, 3) for r in res]}")
         check(runs["serial"] == runs["concurrent"],
@@ -4006,6 +4039,203 @@ class Smoke:
               and not out["blocking_violations"],
               "phase 12 (d): the witness found a lock-order cycle or a "
               "blocking pull under a lock")
+
+    # -- phase 13: the join fleet over a world of ranks ----------------------
+    def phase13_fleet_world(self):
+        """``run_fleet`` (``launch.serve_fleet``), engine ``sharded``, on
+        world 1 and on two ranks sharing the card: (a) 3 tenants on phase
+        6's corpus, (b) 2 tenants on corpora of their own at half its
+        size; world 1 in this process, both sub-phases of world 2 in one
+        spawned world (``_fleet_world_rank``); each query's wall on each
+        rank, each rank's launches and the control records printed, and
+        ``launches_fleet_world`` added to the kernels line."""
+        from repro_torch.launch.ep_world import run_world
+        from repro_torch.launch.serve_fleet import run_fleet
+        t0 = time.perf_counter()
+        # a capacity no band of these corpora overflows: bytes_to_host is
+        # then exactly 12 B a rank a step + 8 B a pair (a retry pulls 8 B
+        # a rank more)
+        # (b) at half phase 6's corpus (1400 x 1400): two plans a rank
+        cases = [(sub, dict(dataset="products", engine="sharded",
+                            engine_opts={"sharded": {"capacity": 65536}},
+                            queries=1, **kw))
+                 for sub, kw in (("a", dict(size=SERVE_SIZE, n_tenants=3,
+                                            shared=True, max_concurrent=3)),
+                                 ("b", dict(size=SERVE_SIZE // 2,
+                                            n_tenants=2, shared=False,
+                                            max_concurrent=2)))]
+        world1 = {}
+        for sub, payload in cases:
+            self.reset_launches()
+            t = time.perf_counter()
+            out = run_fleet(device="cuda", **payload)
+            self.torch.cuda.synchronize()
+            world1[sub] = {"out": out, "wall_s": time.perf_counter() - t,
+                           "launches": self.read_launches()}
+        t = time.perf_counter()
+        ranks = run_world((2, 1), _fleet_world_rank, {"cases": cases},
+                          device="cuda", timeout=900)
+        spawn_wall = time.perf_counter() - t
+        self.fleet_world = {sub: self._fleet_world(sub, payload, world1[sub],
+                                                   [r[sub] for r in ranks])
+                            for sub, payload in cases}
+        keys = {"cnf_join_block": "cnf_join",
+                "threshold_sweep": "threshold_sweep",
+                "compact_append": "compact"}
+        for entry in self.kernels:
+            k = keys[entry["name"]]
+            entry["launches_fleet_world"] = {
+                sub: {"world1": r["launches_world1"][k],
+                      "world2": [c[k] for c in r["launches_world2"]]}
+                for sub, r in self.fleet_world.items()}
+        self.fleet_world["world2_spawned_wall_s"] = spawn_wall
+        self.fleet_world["wall_s"] = time.perf_counter() - t0
+        log(f"phase 13: fleet over a world ok "
+            f"({self.fleet_world['wall_s']:.1f} s, world 2 spawned, both "
+            f"sub-phases, {spawn_wall:.1f} s; {self.smi})")
+
+    def _fleet_world(self, sub, payload, one, ranks):
+        """One sub-phase's checks (the module docstring's phase 13): world
+        1's run ``one`` against world 2's ranks."""
+        import math
+        what = f"phase 13 ({sub})"
+        from repro_torch.launch.serve_join import SERVE_SCALE
+        ev1, ev2 = one["out"]["events"], ranks[0]["out"]["events"]
+        # tenant 0 joins phase 6's corpus at phase 6's seed and plan
+        phase6 = payload["size"] == SERVE_SIZE
+        steps = -(-int(700 * payload["size"] * SERVE_SCALE) // 512)
+        n_q = payload["n_tenants"] * payload["queries"]
+        check(len(ev1) == len(ev2) == n_q,
+              f"{what}: {len(ev1)} / {len(ev2)} queries")
+        pairs1, pairs2 = one["out"]["pairs"], ranks[0]["out"]["pairs"]
+        differing = 0
+        for e1, e2, p1, p2 in zip(ev1, ev2, pairs1, pairs2):
+            check(e1["tenant"] == e2["tenant"] and e1["theta"] == e2["theta"],
+                  f"{what}: tenant {e2['tenant']} theta {e2['theta']} vs "
+                  f"world 1's {e1['theta']}")
+            diff = self._fleet_pairs_in_band(
+                e2["tenant"] if phase6 else None, p2, p1,
+                f"{what} world 2 vs 1")
+            differing += len(diff)
+            for ev, p in ((e1, 1), (e2, 2)):
+                check(ev["bytes_to_host"] == 12 * p * steps
+                      + 8 * ev["candidates"],
+                      f"{what}: world {p} query of {ev['tenant']}: "
+                      f"bytes_to_host {ev['bytes_to_host']}, want 12 B a rank "
+                      f"a step ({steps} steps) + 8 B a pair")
+        cold6 = self.serve_cold
+        for ev, p2 in zip(ev2, pairs2):
+            if phase6 and ev["tenant"] == "t0":
+                check(ev["theta"] == [float(x) for x in cold6.join.theta],
+                      f"{what}: t0 theta differs from phase 6's cold query")
+                diff = self._fleet_pairs_in_band(
+                    "t0", p2, sorted(cold6.pairs), f"{what} vs phase 6")
+                differing += len(diff)
+        d1 = math.fsum(e["total_$"] for e in ev1)
+        d2 = math.fsum(e["total_$"] for e in ev2)
+        check(d1 == d2, f"{what}: the fleet's dollars {d2} vs world 1's {d1}")
+        s1 = one["out"]["summary"]
+        sums = [r["out"]["summary"] for r in ranks]
+        misses = [s["plan_misses"] for s in [s1] + sums]
+        check(misses == [s1["plan_misses"]] * 3 and s1["plan_misses"] ==
+              (1 if payload["shared"] else payload["n_tenants"]),
+              f"{what}: plans built {misses} (world 1, then each rank)")
+        if payload["shared"]:
+            for evs, p in ((ev1, 1), (ev2, 2)):
+                cold = evs[:payload["n_tenants"]]
+                check(sum(e["labeling_$"] > 0 for e in evs) == 1 and any(
+                    e["extraction_$"] == 0 and e["labeling_$"] == 0
+                    for e in cold),
+                      f"{what}: world {p}: no cold query rode another "
+                      f"tenant's plan and planes: "
+                      f"{[(e['extraction_$'], e['labeling_$']) for e in evs]}")
+        else:
+            check([e["total_$"] for e in ev1] == [e["total_$"] for e in ev2],
+                  f"{what}: per-query dollars differ from world 1's")
+        for s in sums:
+            check(s["world"] == 2 and s["ranks_agree"] and s["failed"] == 0
+                  and s["completed"] == n_q,
+                  f"{what}: rank summary world {s['world']} agree "
+                  f"{s['ranks_agree']} failed {s['failed']}")
+        check(sums[0]["world_ranks"] == sums[1]["world_ranks"] and all(
+            r == sums[0]["world_ranks"][0] for r in sums[0]["world_ranks"]),
+              f"{what}: rank digests differ: {sums[0]['world_ranks']}")
+        check(sums[0]["band_steps"] == sums[1]["band_steps"] ==
+              s1["band_steps"] == steps * n_q,
+              f"{what}: band steps {s1['band_steps']} / "
+              f"{[s['band_steps'] for s in sums]}")
+        l1, l2 = one["launches"], [r["launches"] for r in ranks]
+        for c in [l1] + l2:
+            check(c["cnf_join"] == c["compact"] == steps * n_q and
+                  c["threshold_sweep"] == s1["plan_misses"],
+                  f"{what}: launches {c} (world 1, then each rank)")
+        row = {
+            "world1_wall_s": one["wall_s"],
+            "world2_wall_s": [r["wall_s"] for r in ranks],
+            "query_walls_s": {"world1": [e["wall_s"] for e in ev1],
+                              "world2": [[e["wall_s"] for e in
+                                          r["out"]["events"]]
+                                         for r in ranks]},
+            "tenants": [e["tenant"] for e in ev1],
+            "pairs": [e["pairs"] for e in ev2],
+            "candidates": [e["candidates"] for e in ev2],
+            "differing_in_band": differing,
+            "launches_world1": l1, "launches_world2": l2,
+            "control_records": [s["control_records"] for s in sums],
+            "grants": [s["grants"] for s in sums],
+            "band_steps": sums[0]["band_steps"],
+            "interleaves": [s1["interleaves"]]
+            + [s["interleaves"] for s in sums],
+            "collectives": [s["collectives"] for s in sums],
+            "p50_wall_s": [s1["p50_wall_s"]] + [s["p50_wall_s"]
+                                                for s in sums],
+            "ranks_agree": all(s["ranks_agree"] for s in sums)}
+        log(f"{what}: " + json.dumps(row))
+        return row
+
+    def _fleet_pairs_in_band(self, tenant, got, want, what):
+        """Tenant ``tenant``'s pairs in a fleet query against another
+        run's: on phase 6's corpus (tenant ``t0``) they may differ only in
+        pairs within the f32 band of phase 6's plan; any other tenant's
+        (``None``: not phase 6's corpus) must be equal.  Returns the
+        differing pairs."""
+        a = {tuple(p) for p in got}
+        b = {tuple(p) for p in want}
+        if a == b:
+            return set()
+        from repro_torch.core.costs import CostLedger
+        from repro_torch.data.simulated_llm import SimulatedExtractor
+        svc = self.serve_svc
+        check(tenant == "t0", f"{what}: pairs of tenant {tenant} differ")
+        plan = svc._plans[svc._plan_key(svc.cfg)]
+        feats = SimulatedExtractor(svc.dataset, seed=0).materialize(
+            plan.used_specs, CostLedger())
+        return self._candidates_in_band(sorted(a), sorted(b), feats, plan,
+                                        what)
+
+
+# -- phase 13: the job each rank of its world runs --------------------------
+
+def _fleet_world_rank(mesh, dev, p):
+    """One rank of phase 13's world: ``run_fleet`` for each sub-phase in
+    turn, its wall and this rank's launches of the three kernels (counts
+    set to 0 just before it, read just after)."""
+    from repro_torch.kernels.extract import kernel as ek
+    from repro_torch.kernels.fused_cnf_join import kernel as ck
+    from repro_torch.kernels.threshold_sweep import kernel as sk
+    from repro_torch.launch.serve_fleet import run_fleet
+    out = {}
+    for sub, payload in p["cases"]:
+        ck.launches["cnf_join"] = ek.launches["compact"] = 0
+        for name in sk.launches:
+            sk.launches[name] = 0
+        t = time.perf_counter()
+        res = run_fleet(device=str(dev), **payload)
+        out[sub] = {"out": res, "wall_s": time.perf_counter() - t,
+                    "launches": {"cnf_join": ck.launches["cnf_join"],
+                                 "compact": ek.launches["compact"],
+                                 **sk.launches}}
+    return out
 
 
 # -- phase 11 (b): helpers, and the job each rank of its world runs ---------

@@ -109,7 +109,10 @@ BLOCKING_WAIVERS = (
      "must be issued by every rank the same number of times in the same "
      "order, so two threads of one rank that both created the mesh would "
      "issue it twice here and once elsewhere; later calls are dict hits, "
-     "and at world 1 no group is created"),
+     "and at world 1 no group is created.  No fleet worker reaches it on "
+     "a world > 1: JoinFleet.__init__ resolves its mesh (the store's, or "
+     "this one) on every rank before any worker starts, and hands it to "
+     "every tenant's sharded engine through engine_opts"),
 )
 
 # blocking-call surface: call name -> kind, with receiver constraints

@@ -49,10 +49,26 @@ Gloo has no reduce-scatter on every torch version either: it is an
 ``AxisLedger`` books calls and bytes by axis label (``model``, ``fsdp``,
 ``batch``, ...), op and route; a call over one rank moves nothing and is
 not booked.
+
+**Ordered calls (the fleet on a world of several ranks).**  Two queries
+that run at once on every rank would meet in their collectives in a
+different order on each rank, and gloo pairs a ``send`` with a ``recv`` on
+a group in posting order, so one query's ``recv_pairs`` could take the
+other's pairs.  ``JoinFleet`` therefore runs each query's calls inside
+``ordered_calls(order, seq)`` (a context variable, as ``use_tracer``
+is): ``all_gather`` over a group of more than one rank, ``send_pairs``
+and ``recv_pairs`` then take their turn from ``order`` (rank 0 grants
+turns in the order its threads reach them, and every rank runs the calls
+one at a time in that order; ``serving/fleet.py``), as do the fleet's
+band-step enqueues (``turn("band")``).  Outside that context -- outside
+a fleet, and in a fleet on a world of one -- the calls are made as they
+come, with no extra call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 
 import numpy as np
@@ -61,6 +77,41 @@ import torch
 GROUP_KINDS = ("inner", "cross", "pull")
 PAYLOADS = ("counts", "pairs")
 ROUTES = ("gloo", "host")
+# the turns a fleet query takes from its order: a gather over a group, a
+# pair transfer to the coordinator, a band-step enqueue
+ORDERED_OPS = ("all_gather", "pairs", "band")
+
+# (order, query sequence number) of the fleet query this context runs
+_ORDER: contextvars.ContextVar = contextvars.ContextVar("fleet_order",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def ordered_calls(order, seq: int):
+    """Run the block's collective calls and band steps as turns granted by
+    ``order`` (an object with ``turn(seq, op, kind, peer)``, a context
+    manager) for the query numbered ``seq``."""
+    token = _ORDER.set((order, seq))
+    try:
+        yield
+    finally:
+        _ORDER.reset(token)
+
+
+def turn(op: str, kind: str = "", peer: int = -1):
+    """The context a call of ``op`` over ``kind`` (with ``peer``, the
+    sending rank of a pair transfer) runs in: its turn from the current
+    fleet query's order, else nothing."""
+    cur = _ORDER.get()
+    if cur is None:
+        return contextlib.nullcontext()
+    order, seq = cur
+    return order.turn(seq, op, kind, peer)
+
+
+def ordered() -> bool:
+    """Whether this context runs a fleet query's calls in turns."""
+    return _ORDER.get() is not None
 
 
 class CollectiveLedger:
@@ -158,7 +209,8 @@ def all_gather(values, mesh, kind: str) -> np.ndarray:
     else:
         import torch.distributed as dist
         parts = [torch.empty_like(t) for _ in ranks]
-        dist.all_gather(parts, t, group=group)
+        with turn("all_gather", kind):
+            dist.all_gather(parts, t, group=group)
         out = torch.stack(parts).numpy()
     mesh.ledger.record(kind, "all_gather", "counts", out.nbytes, len(ranks))
     return out
@@ -170,7 +222,8 @@ def send_pairs(pairs: np.ndarray, mesh) -> None:
     sender records what it sent, the coordinator what it received."""
     import torch.distributed as dist
     t = _int32(pairs)
-    dist.send(t, dst=mesh.coordinator, group=mesh.pull)
+    with turn("pairs", "pull", mesh.rank):
+        dist.send(t, dst=mesh.coordinator, group=mesh.pull)
     mesh.ledger.record("pull", "send", "pairs", t.numel() * 4,
                        len(mesh.pull_ranks))
 
@@ -179,7 +232,8 @@ def recv_pairs(n: int, src: int, mesh) -> np.ndarray:
     """Receive rank ``src``'s ``n`` candidate pairs on the coordinator."""
     import torch.distributed as dist
     t = torch.empty(2 * n, dtype=torch.int32)
-    dist.recv(t, src=src, group=mesh.pull)
+    with turn("pairs", "pull", src):
+        dist.recv(t, src=src, group=mesh.pull)
     mesh.ledger.record("pull", "recv", "pairs", t.numel() * 4,
                        len(mesh.pull_ranks))
     return t.numpy().reshape(n, 2)

@@ -74,6 +74,21 @@ def _dist():
     return dist if dist.is_available() and dist.is_initialized() else None
 
 
+def world_timeout() -> datetime.timedelta:
+    """How long a group of this world waits for a peer: ``GROUP_TIMEOUT``,
+    or the world's own timeout where it was created with a shorter one."""
+    dist = _dist()
+    if dist is None:
+        return GROUP_TIMEOUT
+    try:
+        import torch
+        own = dist.group.WORLD._get_backend(
+            torch.device("cpu")).options._timeout
+    except (AttributeError, RuntimeError):     # another backend or version
+        return GROUP_TIMEOUT
+    return min(GROUP_TIMEOUT, own)
+
+
 def world_size() -> int:
     """Ranks in the default process group (1 when none is initialized)."""
     dist = _dist()
@@ -137,7 +152,7 @@ class JoinMesh:
         def new_group(ranks):
             if len(ranks) == 1:
                 return None
-            return dist.new_group(ranks, timeout=GROUP_TIMEOUT)
+            return dist.new_group(ranks, timeout=world_timeout())
 
         for p in range(self.n_pods):
             g = new_group([p * self.n_inner + i for i in range(self.n_inner)])
@@ -166,7 +181,7 @@ class JoinMesh:
                                 if a not in axes)
                     parts.setdefault(key, []).append(r)
                 for ranks in parts.values():
-                    g = (dist.new_group(ranks, timeout=GROUP_TIMEOUT)
+                    g = (dist.new_group(ranks, timeout=world_timeout())
                          if len(ranks) > 1 else None)
                     if self.rank in ranks:
                         self._axis_groups[frozenset(axes)] = g

@@ -66,7 +66,10 @@ Padded rows/cols are filtered on the host — O(candidates) work.
 
 The mesh is resolved per evaluation (a mesh given at construction wins,
 else the plane set's, else the host mesh of the current world) and never
-pinned on the instance.  On ``device="cpu"`` the same loop runs the
+pinned on the instance.  A fleet on a world of several ranks gives every
+tenant's engine its mesh at construction (``JoinFleet._gated_cfg``), so a
+fleet worker never creates the host mesh, whose process groups every rank
+must create in the same order.  On ``device="cpu"`` the same loop runs the
 kernels' plain-torch versions, synchronously.  What the reference has and
 this engine has not: its jit program cache (nothing here is compiled per
 plan; kernel A's clause plan is cached by its wrapper).
@@ -150,12 +153,14 @@ class _Transfers:
 
 
 _HOST_MESH: dict = {}                  # world -> shared default mesh
-_HOST_MESH_LOCK = threading.Lock()     # fleet: engines resolve it concurrently
+_HOST_MESH_LOCK = threading.Lock()     # engines resolve it concurrently
 
 
 def _default_mesh():
     """The host mesh of the current world, one per world: a stable key for
-    the plane sets' ``pack_cache``."""
+    the plane sets' ``pack_cache``.  Its first call on a world of several
+    ranks creates process groups (a collective): ``JoinFleet.__init__``
+    makes it on every rank before any worker starts."""
     from repro_torch.distributed.mesh import (make_host_mesh, world_rank,
                                               world_size)
     import torch.distributed as dist

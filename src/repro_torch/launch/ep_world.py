@@ -370,19 +370,22 @@ def _rank_main(rank: int, world: int, init_file: str, shape: tuple,
 
 def run_world(shape: tuple, job: str, payload: dict, *, device: str = "cpu",
               axes: tuple = AXES, timeout: float = 600.0,
-              launches: list = None) -> list:
+              launches: list = None, group_timeout: int = None) -> list:
     """Spawn the world of a ``shape`` mesh over ``axes`` (default
     ``("data", "model")``), run ``job`` (a name in ``JOBS``, or a
     module-level function the ranks can import) on every rank with
     ``payload`` and return the ranks' results in rank order.
     ``launches``, when given, receives each rank's launch counts of the
-    join kernels (read as its job ends)."""
+    join kernels (read as its job ends).  ``group_timeout``: the seconds
+    the world's groups wait for a peer (default ``timeout`` - 10, within
+    30..300)."""
     import torch.multiprocessing as mp
     n = int(np.prod(shape))
     tmp = tempfile.mkdtemp(prefix="ep_world_")
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    group_timeout = int(max(30, min(300, timeout - 10)))
+    if group_timeout is None:
+        group_timeout = int(max(30, min(300, timeout - 10)))
     procs = [ctx.Process(target=_rank_main, args=(
         r, n, os.path.join(tmp, "rendezvous"), tuple(shape), tuple(axes),
         device, job, payload, group_timeout, out)) for r in range(n)]

@@ -14,6 +14,20 @@ wall from the ``fleet.query_wall_s`` histogram, scheduler band-step /
 interleave counts (the sharded engine, the default, enqueues each band
 step through the fleet's scheduler; the other engines stream no bands
 and leave them 0), and the shared store's counters.
+
+Under a ``torchrun``-style environment (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) every rank joins the world over gloo
+(``init_from_env``) and runs the same submissions; rank 0 orders the
+fleet's admissions and collectives (``serving/fleet.py``), and only rank 0
+prints.  On one host:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve_fleet --engine sharded --tenants 3 --shared
+
+The summary then also gives the world's size, ``ranks_agree`` (every
+rank's admission and grant sequences, band steps, interleaves and
+collective calls by group, in order, are the same), the grant count and
+the collective ledger by group.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ import argparse
 import json
 
 from repro_torch.core.join import FDJConfig
+from repro_torch.distributed.mesh import init_from_env, world_rank
 from repro_torch.launch._args import (add_common_flags, engine_opts_from,
                                       make_dataset)
 from repro_torch.launch.serve_join import SERVE_SCALE
@@ -36,8 +51,15 @@ def run_fleet(dataset: str = "police_records", engine: str = "sharded",
               max_concurrent: int = 2, byte_budget=None, tenant_budget=None,
               engine_opts=None, prefetch_depth=None, oracle_latency=0.0,
               trace_out=None, device: str = "cuda") -> dict:
+    """Run the fleet and return {"events", "summary", "pairs"}, where
+    ``pairs[i]`` is the sorted pair list of ``events[i]``'s query (not
+    printed); on a world of several ranks every rank calls it alike and
+    only rank 0 prints."""
+    say = print if world_rank() == 0 else (lambda *a: None)
     fleet = JoinFleet(byte_budget=byte_budget, device=device,
                       max_concurrent=max_concurrent)
+    # the world's host mesh outlives this fleet: report this run's calls
+    before = fleet.mesh.ledger.summary()["by_group"]
     for t in range(n_tenants):
         ds = make_dataset(dataset, size=size,
                           seed=seed if shared else seed + t,
@@ -50,8 +72,9 @@ def run_fleet(dataset: str = "police_records", engine: str = "sharded",
                          oracle_factory=(
                              lambda d=ds: d.make_oracle(oracle_latency)))
 
-    tracer = Tracer() if trace_out else None
-    events = []
+    # one trace file: the coordinating rank's
+    tracer = Tracer() if trace_out and world_rank() == 0 else None
+    events, pairs = [], []
     with use_tracer(tracer):
         # interleaved submission (t0, t1, ..., t0, t1, ...): every tenant
         # has work queued from the start, so admission rotates and
@@ -63,12 +86,19 @@ def run_fleet(dataset: str = "police_records", engine: str = "sharded",
             ev = {"tenant": name, "recall": round(r.join.recall, 4),
                   "precision": round(r.join.precision, 4),
                   "pairs": len(r.pairs), "plan_hit": r.plan_hit,
+                  "candidates": r.join.candidate_count,
+                  "theta": [float(t) for t in r.join.theta],
                   "extraction_$": round(r.cost.inference, 6),
+                  "labeling_$": round(r.cost.labeling, 6),
+                  "total_$": r.cost.total,
                   "dedup_hits": r.cost.plane_dedup_hits,
                   "bytes_h2d": r.cost.bytes_h2d,
+                  "bytes_to_host": (r.join.engine_stats.bytes_to_host
+                                    if r.join.engine_stats else 0),
                   "wall_s": round(r.wall_s, 3)}
+            say(json.dumps(ev))
             events.append(ev)
-            print(json.dumps(ev))
+            pairs.append(sorted(r.pairs))
         summary = fleet.drain()
     if tracer is not None:
         write_trace(tracer, trace_out, metadata={
@@ -85,10 +115,24 @@ def run_fleet(dataset: str = "police_records", engine: str = "sharded",
                    fleet.service(name).ledger.breakdown().items()}
             for name in fleet.tenants},
         tenant_bytes={name: fleet.store.tenant_bytes(name)
-                      for name in fleet.tenants})
+                      for name in fleet.tenants},
+        plan_misses=fleet.plan_library.misses)
     fleet.close()
-    print(json.dumps({"summary": summary}, indent=1))
-    return {"events": events, "summary": summary}
+    # a world of one rank keeps one order trivially
+    report = fleet.world_report or {"ranks_agree": True, "ranks": []}
+    summary.pop("world", None)          # the drain's, before the STOP
+    order = report.get("order", {})
+    after = fleet.mesh.ledger.summary()["by_group"]
+    summary.update(
+        world=fleet.mesh.size, ranks_agree=report["ranks_agree"],
+        grants=order.get("grants", 0),
+        control_records=order.get("control_records", 0),
+        collectives={k: {"calls": g["calls"] - before[k]["calls"],
+                         "bytes": g["bytes"] - before[k]["bytes"]}
+                     for k, g in after.items()},
+        world_ranks=report["ranks"])
+    say(json.dumps({"summary": summary}, indent=1))
+    return {"events": events, "summary": summary, "pairs": pairs}
 
 
 def main():
@@ -110,6 +154,7 @@ def main():
                     help="simulated L_p round-trip seconds per labeled "
                          "pair (GIL-released; see SimulatedOracle)")
     args = ap.parse_args()
+    init_from_env()
     run_fleet(args.dataset, args.engine, args.stream, args.size, args.target,
               args.delta, args.seed, args.tenants, args.queries, args.shared,
               args.max_concurrent, args.byte_budget, args.tenant_budget,

@@ -32,7 +32,7 @@ from repro_torch.analysis.lockgraph import (BLOCKING_WAIVERS, _DIST_BLOCKING,
 
 REPO = Path(__file__).resolve().parents[1]
 
-# the port's 15 lock sites
+# the port's 16 lock sites
 _NODES = (
     "obs.trace.Tracer._lock",
     "obs.metrics.MetricsRegistry._lock",
@@ -40,6 +40,7 @@ _NODES = (
     "serving.fleet.JoinFleet._cond",
     "serving.fleet.JoinFleet._mlock",
     "serving.fleet.BandScheduler._cond",
+    "serving.fleet._WorldOrder._cond",
     "serving.join_service.PlanLibrary._lock",
     "serving.join_service.PlanLibrary.lease.lk",
     "engine.sharded._HOST_MESH_LOCK",
@@ -127,6 +128,39 @@ class TestLockGraphTree:
                 if "dist.new_group under engine.sharded._HOST_MESH_LOCK" in w]
         assert hits and "waived: the host mesh is created once" in hits[0]
         assert "dist.new_group" in render_text(self.g)
+
+    def test_host_mesh_waiver_says_no_fleet_worker_reaches_it(self):
+        """The one waived new_group hold stays one, and its reason now says
+        why a fleet on a world > 1 never reaches it: the fleet resolves its
+        mesh in __init__ and hands it to every tenant's engine."""
+        mesh_waivers = [w for w in BLOCKING_WAIVERS if "new_group" in w[1]]
+        assert len(mesh_waivers) == 1 and len(BLOCKING_WAIVERS) == 2
+        assert "No fleet worker reaches it" in mesh_waivers[0][2]
+        assert "JoinFleet.__init__" in mesh_waivers[0][2]
+
+    def test_world_order_blocks_under_no_lock(self):
+        """The fleet's control thread receives (and rank 0's sends) rank
+        0's order with a blocking ``dist.broadcast`` and the ranks compare
+        digests with ``dist.all_gather_object``: under no lock, so nothing
+        is found or waived there; the same receive moved under the order's
+        Condition is found."""
+        node = self.g.nodes["serving.fleet._WorldOrder._cond"]
+        assert node.kind == "Condition"
+        assert not any("_WorldOrder" in w or "broadcast" in w
+                       for w in self.g.waived)
+        src = (REPO / "src" / "repro_torch" / "serving" / "fleet.py"
+               ).read_text()
+        recv = "                dist.broadcast(buf, src=0, group=self._group)"
+        assert src.count(recv) == 2
+        seeded = src.replace(
+            "            try:\n" + recv,
+            "            try:\n                with self._cond:\n    " + recv,
+            1)
+        assert seeded != src
+        g = build_lock_graph([("src/repro_torch/serving/fleet.py", seeded)])
+        bad = [f for f in g.findings if f.rule == "lock-blocking"]
+        assert len(bad) == 1 and "dist.broadcast" in str(bad[0]), \
+            [str(f) for f in g.findings]
 
     def test_np_save_does_not_resolve_to_checkpoint_save(self):
         """``np.save`` in core/adj_target.py must not resolve by unique

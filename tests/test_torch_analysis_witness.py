@@ -12,7 +12,8 @@ guard wraps the port's pulls in place of ``jax.device_get``:
 the CPU too.  The 3-tenant fleet stress test runs on engine ``numpy`` (as
 the reference runs it) and on engine ``sharded``, whose band steps go
 through the fleet's scheduler and whose every pull passes the armed
-guard.
+guard; and on engine ``sharded`` over a world of two gloo ranks, rank 0
+ordering admissions and collectives, the witness armed on each rank.
 """
 
 import threading
@@ -267,3 +268,67 @@ def test_fleet_stress_under_witness_validates_static_graph(engine,
     assert w.order_cycles() == [], w.order_cycles()
     assert w.check_against(static) == []
     assert w.blocking_violations == []
+
+
+def _witness_world_job(mesh, device, payload):
+    """One rank of a two-rank world: the 3-tenant ``sharded`` fleet
+    (rank 0 ordering its admissions and collectives) under the armed
+    witness, planning on an empty curve cache of this rank's own."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core.join import FDJConfig
+
+    static = build_lock_graph()
+    os.environ["REPRO_TORCH_ADJ_CACHE"] = tempfile.mkdtemp(
+        prefix=f"adj_rank{dist.get_rank()}_")
+    pulls = []
+    wait = sharded._Transfers.__dict__["wait"].__func__
+    sharded._Transfers.wait = staticmethod(
+        lambda step: pulls.append(step.k) or wait(step))
+    with lock_witness(guard_blocking=True) as w:
+        from repro_torch.serving.fleet import JoinFleet
+
+        cfg = FDJConfig(engine="sharded", device="cpu",
+                        engine_opts=_OPTS["sharded"], seed=0, mc_trials=4000)
+        fleet = JoinFleet(max_concurrent=3, device="cpu")
+        fleet.add_tenant("a", _police(3), cfg)
+        fleet.add_tenant("b", _police(3), cfg)
+        fleet.add_tenant("c", _police(7), cfg)
+        futures = [(name, fleet.submit(name))
+                   for _ in range(2) for name in ("a", "b", "c")]
+        pairs = {}
+        for name, fut in futures:
+            pairs.setdefault(name, []).append(
+                sorted(fut.result(timeout=300).pairs))
+        summary = fleet.drain()
+        fleet.close()
+    by_site = {(n.file, n.line) for n in static.nodes.values()}
+    return {"completed": summary["completed"], "failed": summary["failed"],
+            "pairs": pairs, "pulls": len(pulls),
+            "mapped": len([s for s in w.sites
+                           if (s.file, s.line) in by_site]),
+            "cycles": w.order_cycles(),
+            "with_static": w.check_against(static),
+            "violations": w.blocking_violations,
+            "agree": fleet.world_report["ranks_agree"]}
+
+
+def test_fleet_world_of_two_under_witness():
+    """The 3-tenant ``sharded`` fleet on a CPU world of two ranks, under
+    the armed witness on each: no order cycle (observed, or merged into
+    the static graph) and no pull under a lock on either rank, the
+    ring's pulls through the guard on both, and the ranks agree on rank
+    0's order; rank 0's pairs are the shared corpus's on both tenants."""
+    from repro_torch.launch.ep_world import run_world
+
+    ranks = run_world((2, 1), _witness_world_job, {}, timeout=300)
+    for r in ranks:
+        assert r["completed"] == 6 and r["failed"] == 0
+        assert r["cycles"] == [] and r["with_static"] == []
+        assert r["violations"] == []
+        assert r["pulls"] > 0 and r["mapped"] > 0 and r["agree"]
+    p = ranks[0]["pairs"]
+    assert p["a"][0] == p["a"][1] == p["b"][0] and p["a"][0]
+    assert p["c"][0] == p["c"][1]

@@ -17,7 +17,7 @@ must give the same chunks, candidates, ``conjunct_evals``,
 ``bytes_to_host``, retries and ``last_sweep_caps``, on the police_records
 fixture and on the capacity-1 fixture.  And units of what the slice adds:
 ``hierarchical_offsets``, the mesh layout of ``stage_planes``,
-``build_join_cell``, the fleet's refusal of a world > 1, ``launch.join``
+``build_join_cell``, the fleet on a world of two ranks, ``launch.join``
 under a two-rank ``torchrun``-style environment, and the new modules'
 imports.
 """
@@ -276,19 +276,62 @@ def test_build_join_cell_shards_and_step():
     assert torch.equal(got, cref.pack_mask(ok))
 
 
-def test_fleet_refuses_a_world_of_more_than_one_rank(monkeypatch):
-    """A fleet would interleave band steps — and so collectives — in a
-    different order on each rank: refused on a world > 1; a world of one
-    serves as before."""
-    import repro_torch.distributed.mesh as mesh_mod
+def _fleet_world_job(mesh, device, payload):
+    """One rank of a two-rank world: a fleet built with no mesh resolves
+    the world's host mesh in ``__init__`` (every ``new_group`` call comes
+    from this thread, none from a worker) and serves a query."""
+    import threading
+
+    import torch.distributed as dist
+    from repro_torch.core.join import FDJConfig
+    from repro_torch.engine import sharded
     from repro_torch.serving.fleet import JoinFleet
 
-    fleet = JoinFleet(device="cpu", mesh=make_join_mesh(1, 1, 1))
-    assert fleet.store.mesh is not None
+    made, real = [], dist.new_group
+
+    def new_group(*a, **kw):
+        made.append(threading.current_thread().name)
+        return real(*a, **kw)
+
+    dist.new_group = new_group
+    fleet = JoinFleet(device="cpu", max_concurrent=2)
+    resolved = fleet.mesh is sharded._default_mesh()
+    fleet.add_tenant("a", _police(12)[0], FDJConfig(
+        engine="sharded", device="cpu", seed=0, mc_trials=4000,
+        engine_opts=dict(tl=32, tr=32, r_chunk=64)))
+    r = fleet.query("a")
     fleet.close()
-    monkeypatch.setattr(mesh_mod, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="2 ranks"):
-        JoinFleet(device="cpu")
+    dist.new_group = real
+    return {"resolved": resolved, "size": fleet.mesh.size,
+            "group_threads": made, "pairs": sorted(r.pairs),
+            "candidates": r.join.candidate_count,
+            "agree": fleet.world_report["ranks_agree"]}
+
+
+def test_fleet_refuses_a_world_of_more_than_one_rank():
+    """Formerly the refusal of a world > 1; a fleet now serves one, rank 0
+    ordering its admissions and collectives: a world of 2 builds its
+    fleet, resolves the host mesh in ``__init__`` (no worker creates a
+    group) and serves a query whose pairs, on rank 0, are the one-rank
+    fleet's."""
+    from repro_torch.core.join import FDJConfig
+    from repro_torch.launch.ep_world import run_world
+    from repro_torch.serving.fleet import JoinFleet
+
+    ranks = run_world((2, 1), _fleet_world_job, {}, timeout=240)
+    with JoinFleet(device="cpu", mesh=make_join_mesh(1, 1, 1)) as fleet:
+        assert fleet.store.mesh is not None and fleet.mesh is fleet.store.mesh
+        fleet.add_tenant("a", _police(12)[0], FDJConfig(
+            engine="sharded", device="cpu", seed=0, mc_trials=4000,
+            engine_opts=dict(tl=32, tr=32, r_chunk=64)))
+        one = fleet.query("a")
+    for rank, r in enumerate(ranks):
+        assert r["resolved"] and r["size"] == 2 and r["agree"]
+        assert r["group_threads"] and all(
+            not t.startswith("fleet-worker") for t in r["group_threads"])
+    assert ranks[0]["pairs"] == sorted(one.pairs) and ranks[0]["pairs"]
+    assert ranks[0]["candidates"] == one.join.candidate_count
+    assert ranks[1]["pairs"] == []
 
 
 def test_new_modules_import_neither_jax_nor_repro():
