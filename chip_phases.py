@@ -1,0 +1,60 @@
+"""Phase 1 of ``chip_smoke.py`` (the card and the kernels' build), then
+sub-phases of phase 11 alone, on the card:
+
+    python3 chip_phases.py a d            # (a) EP MoE smoke, (d) dense TP
+    python3 chip_phases.py d --layers 2,4 # (d) at each depth in turn
+
+(a) is ``Smoke._ep_smoke``, (d) ``Smoke._dense_tp`` (at
+``DENSE_TP_LAYERS``, or at each depth of ``--layers``, where a failed gate
+is printed and the next depth run).  Each sub-phase prints its line as
+``chip_smoke.py`` does, then its wall; the last line is the card's name
+and power limit."""
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import chip_smoke  # noqa: E402
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sub", nargs="+", choices=("a", "d"))
+    ap.add_argument("--layers", default=None,
+                    help="comma-separated depths for (d)")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        chip_smoke.fail("torch sees no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = chip_smoke.Smoke(torch)
+    ctx.phase1_card_and_build()
+    ctx.ep_launches = []
+    for sub in args.sub:
+        depths = ([int(x) for x in args.layers.split(",")]
+                  if sub == "d" and args.layers else [None])
+        for layers in depths:
+            if layers is not None:
+                chip_smoke.DENSE_TP_LAYERS = layers
+            t = time.perf_counter()
+            try:
+                (ctx._dense_tp if sub == "d" else ctx._ep_smoke)()
+            except SystemExit as e:
+                if layers is None:
+                    raise
+                print(f"(d) at {layers} layers: {e}", flush=True)
+            print(f"sub-phase {sub}"
+                  + (f" at {layers} layers" if layers else "")
+                  + f": {time.perf_counter() - t:.1f} s", flush=True)
+    print("join-kernel launches of the ranks:", ctx.ep_launches, flush=True)
+    print(ctx.smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()

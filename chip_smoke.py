@@ -161,9 +161,9 @@ Phases, in order; any failure exits non-zero before the last line:
      must differ from prefill without), bf16: init s and peak, the
      launcher's 16 requests in process, prefill ms a wave and of 8 x 256
      tokens, decode ms a step (events), device ms and busy share against
-     the bytes bound; (d) zamba2 and xlstm prefill 1 x 4096 tokens (16
-     chunks) and decode one, in float32 compute and bf16: the first
-     layer's state within 1e-4 of a prefill of all 4097 (f32); the
+     the bytes bound; (d) zamba2 prefill 1 x 2048 tokens (8 chunks)
+     and xlstm 1 x 512, and decode one, in float32 compute and bf16: the
+     first layer's state within 1e-4 of a prefill of all n + 1 (f32); the
      decode against that prefill and against a full forward recorded
      (the random models keep the forward, which starts mLSTM and sLSTM
      from the reference's other initial state, and zamba2's bf16 KV
@@ -197,14 +197,22 @@ Phases, in order; any failure exits non-zero before the last line:
      float32 at (1, 2) and (2, 2), card against CPU in one world: a
      prefill of 8 x 64 (``moe_ffn_ep``), 8 decode steps
      (``moe_ffn_ep_replicated_dsharded``), one train step with
-     ``use_ep``, ``moe_ffn_ep_replicated`` called directly, and on the
-     card the block's decode against ``moe_ffn_dense``; (b)
+     ``use_ep`` (held to max(tolerance, the CPU's own floor: its step on
+     weights nudged one ulp)), ``moe_ffn_ep_replicated`` called
+     directly, and on the card the block's decode against
+     ``moe_ffn_dense``; (b)
      deepseek-v2-236b at full width (4 of 60 layers, bf16) over (1, 2)
      against world 1's ``moe_ffn_dense`` and against world 1 with its
      expert sums in the EP decode's order (``_ep_full_width``; its ranks
      run ``_ep_full_width_rank``, so the ranks import this file); (c) a
      world-1 checkpoint restored onto (1, 2), and ``launch.train --mesh
-     single`` refused at world 1;
+     single`` refused at world 1; (d) the dense GQA leaves as their
+     ``param_specs`` blocks (tensor-parallel attention and FFN, the batch
+     split over ``batch``): phi4-mini's train step over (1, 2) and (2, 1)
+     in one world of two ranks (``_dense_tp_rank``), its smoke config
+     card against CPU in float32, and at full width (``DENSE_TP_LAYERS``
+     layers, bf16 compute, f32 masters) two steps against world 1: step
+     ms a rank, peak memory, collectives by axis and route;
  12. the reference's invariants over the port, each sub-phase's wall and
      launches printed (counts set to 0 just before it, read just after):
      (a) ``python -m repro_torch.analysis --check`` exits 0 on the port's
@@ -295,6 +303,22 @@ ZOO_SSM_FULL = (("zamba2-1.2b", 38, 1_352_519_680),
                 ("llama-3.2-vision-90b", 20, 19_235_414_020))
 # phase 10: bf16 dense peak of the data sheet (SXM / PCIe), for the MFU
 BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}
+# phase 9 (SSM) (d): the long prefill's length per config, cut from 4096
+# to keep the script under 1000 s (xlstm's sLSTM is a Python loop over
+# time, on the card ≈ 15 s a 4096-token pass)
+LONG_PREFILL = {"zamba2-1.2b": 2048, "xlstm-350m": 512}
+# phase 11 (d): phi4-mini's depth over two ranks sharing the card (a layer
+# 100.7 M parameters, the embedding 614.6 M; 16 B a parameter in training)
+DENSE_TP_LAYERS = 4
+# its full-width gates against world 1 (bf16 compute): each step's loss
+# relative (the random model's loss is ln V to 7e-4, so the limit lies
+# below that) and the logits of max |logit|, each raised to twice world
+# 1's own floor (its run on weights nudged one ulp) where that is larger;
+# layer 0 and the embedding's two uses taught (fixed inputs and
+# cotangent), each output and gradient as ||x - world 1's|| / ||world
+# 1's||, on the same weights: not raised (a one-ulp nudge of the weights
+# moves these more than the rounding of one layer does)
+DENSE_TP_TOL = {"loss": 2e-4, "logits": 3e-2, "teacher": 3e-2}
 
 
 def fail(msg):
@@ -2552,7 +2576,8 @@ class Smoke:
             row.update(self._moe_parts(cfg, model, moes, weight_bytes,
                                        state_bytes, cache_bytes, prompts))
         elif cfg.ssm is not None:
-            row["long_4096"] = self._long_prefill(cfg, model)
+            row["long_prefill"] = self._long_prefill(
+                cfg, model, LONG_PREFILL[arch])
         elif not cfg.cross_attn_every:
             row.update(self._dense_parts(cfg, model, prompts))
         del model, eng
@@ -2761,8 +2786,8 @@ class Smoke:
         llama-3.2-vision's smoke configs; (b) ``launch.serve --full`` for
         zamba2-1.2b and xlstm-350m; (c) zamba2-1.2b and xlstm-350m whole and
         llama-3.2-vision-90b at full width cut to 20 of 100 layers, each
-        timed, llama-vision with a memory; (d) a 4096-token prefill, then a
-        decode, against a full forward (zamba2, xlstm).  The path runs none
+        timed, llama-vision with a memory; (d) a long prefill (zamba2
+        2048 tokens, xlstm 512), then a decode, against a full forward.  The path runs none
         of the three hand-written kernels: counts set to 0 before it and
         read after must stay 0."""
         torch = self.torch
@@ -2799,35 +2824,31 @@ class Smoke:
         """A copy of ``model`` with every weight moved one ulp up or down,
         the side drawn from ``seed``: another draw of the f32 rounding."""
         import copy
-        torch = self.torch
+        from repro_torch.launch.ep_world import nudge_
         out = copy.deepcopy(model)
-        g = torch.Generator().manual_seed(seed)
-        inf = torch.tensor(float("inf"))
-        with torch.no_grad():
-            for p in out.parameters():
-                up = torch.rand(p.shape, generator=g) < 0.5
-                p.copy_(torch.nextafter(p, torch.where(up, inf, -inf)))
+        nudge_(out.parameters(), seed)
         return out
 
-    def _long_prefill(self, cfg, model):
-        """(d) 1 x 4096 random tokens prefilled (16 chunks of 256: the
-        inter-chunk scan at full width), then the 4097th decoded, on the
-        served weights (cast at use), against the last logits of a full
-        forward of the 4097 (the reference's decode test) and of a prefill
-        of the 4097 into a fresh state; and the prefill's wall (events, one
-        call).  Four runs: float64 compute with an f64 KV cache and f64
+    def _long_prefill(self, cfg, model, n):
+        """(d) 1 x ``n`` random tokens prefilled (``LONG_PREFILL``: zamba2
+        2048, 8 chunks of 256, the inter-chunk scan at full width; xlstm
+        512, its sLSTM a Python loop over time), then token n + 1
+        decoded, on the served weights (cast at use), against the last
+        logits of a full forward of the n + 1 (the reference's decode
+        test) and of a prefill of the n + 1 into a fresh state; and the
+        prefill's wall (events, one call).  Four runs: float64 compute with an f64 KV cache and f64
         attention scores (rope's angles and rotation stay f32); float32
         compute with the served bf16 KV cache; zamba2 also with an f32
         cache; the served bf16.  Gated, each limit set from the readings
         of a first run on an H100 (PERF.md §6):
         - every SSM layer, teacher-forced in the f32 run (fed its input
-          from the prefill of 4097), after a prefill of 4096 and one step
+          from the prefill of n + 1), after a prefill of n and one step
           gives the state and the output change of that prefill to 5e-4 of
           each leaf's max (read: at most 4.5e-5 zamba2, 9.9e-5 xlstm): the
           recurrent step against the chunked scan at full width, each
-          layer on its own;
+          layer on its own (the readings at 4096 for both);
         - in float64 the decode gives the forward's and the prefill of
-          4097's logits to 1e-6 of max |logit| (read: 2.2e-10 zamba2,
+          n + 1's logits to 1e-6 of max |logit| (card: 2.2e-10 zamba2,
           5.6e-8 xlstm, whose forward starts mLSTM at m = -inf and sLSTM
           at n = 1 where a prefill starts from zeros, as the reference's):
           the decode path in near exact arithmetic;
@@ -2844,8 +2865,8 @@ class Smoke:
         np, torch = self.np, self.torch
         from repro_torch.models import steps, transformer
         toks = torch.as_tensor(np.random.default_rng(3).integers(
-            0, cfg.vocab_size, (1, 4097)), device=self.dev)
-        pos = torch.full((1, 1), 4096, dtype=torch.int32, device=self.dev)
+            0, cfg.vocab_size, (1, n + 1)), device=self.dev)
+        pos = torch.full((1, 1), n, dtype=torch.int32, device=self.dev)
         kinds = [k for k, _ in transformer.plan_segments(cfg).layers]
         ssm = [i for i, k in enumerate(kinds) if k in ("mamba2", "mlstm",
                                                        "slstm")]
@@ -2856,13 +2877,13 @@ class Smoke:
         runs.append((cfg.dtype, "bfloat16"))
         out, last = {}, {}
 
-        def prefill(c, m, cache, n):
+        def prefill(c, m, cache, length):
             """The prefill step with its KV cache in ``cache``."""
             st = [{k: t.to(getattr(torch, cache)) if k in ("k", "v") else t
                    for k, t in layer.items()}
-                  for layer in transformer.init_state(c, 1, 4104, self.dev)]
+                  for layer in transformer.init_state(c, 1, n + 8, self.dev)]
             with torch.inference_mode():
-                logits, st, _ = m(toks[:, :n], state=st)
+                logits, st, _ = m(toks[:, :length], state=st)
             return st, logits[:, -1]
         for dtype, cache in runs:
             key = f"{dtype}_{cache}_cache"
@@ -2874,10 +2895,10 @@ class Smoke:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             torch.cuda.reset_peak_memory_stats()
             ev[0].record()
-            st, _ = prefill(c, m, cache, 4096)
+            st, _ = prefill(c, m, cache, n)
             ev[1].record()
             ev[1].synchronize()
-            st, dec = steps.make_decode_step(c)(m, st, toks[:, 4096:], pos)
+            st, dec = steps.make_decode_step(c)(m, st, toks[:, n:], pos)
             with torch.inference_mode():
                 fwd = m(toks)[0][:, -1]
             row = {"prefill_ms": ev[0].elapsed_time(ev[1]),
@@ -2891,7 +2912,7 @@ class Smoke:
                 hooks += [blk.register_forward_hook(
                     lambda mod, a, o, i=i: ys.__setitem__(i, o[0][:, -1]))
                     for i, blk in enumerate(m.layers) if i in ssm]
-                st2, pre = prefill(c, m, cache, 4097)
+                st2, pre = prefill(c, m, cache, n + 1)
                 for h in hooks:
                     h.remove()
                 row["decode_vs_prefill_err"] = self._rel(dec, pre)
@@ -2901,7 +2922,7 @@ class Smoke:
                     for i in ssm]
                 if key == "float32_bfloat16_cache":
                     row["taught_err_by_layer"] = self._taught(
-                        m, ssm, xs, ys, st2)
+                        m, ssm, xs, ys, st2, n)
                 del xs, ys, st2
             if dtype == "float64":
                 last["f64"] = {"fwd": fwd, "dec": dec, "pre": pre}
@@ -2913,35 +2934,36 @@ class Smoke:
             del st, fwd, dec, m
         taught = out["float32_bfloat16_cache"]["taught_err_by_layer"]
         check(max(taught) <= 5e-4,
-              f"{cfg.name}: 4096-token prefill + one step against a prefill "
-              f"of 4097, each SSM layer taught its input: {taught}")
+              f"{cfg.name}: {n}-token prefill + one step against a prefill "
+              f"of {n + 1}, each SSM layer taught its input: {taught}")
         f64 = out["float64_float64_cache"]
         check(max(f64["decode_vs_prefill_err"],
                   f64["decode_vs_forward_err"]) <= 1e-6,
-              f"{cfg.name}: 4096-token prefill + decode in float64: {f64}")
+              f"{cfg.name}: {n}-token prefill + decode in float64: {f64}")
         if "attn" in kinds:
             f32 = out["float32_float32_cache"]
             check(f32["decode_vs_forward_err"] < 0.15,
-                  f"{cfg.name}: 4096-token prefill + decode in float32 with "
+                  f"{cfg.name}: {n}-token prefill + decode in float32 with "
                   f"an f32 cache against a forward: {f32}")
+        out["tokens"] = n
         return out
 
-    def _taught(self, m, ssm, xs, ys, want):
+    def _taught(self, m, ssm, xs, ys, want, n):
         """Each SSM layer ``i`` of ``m``, fed ``xs[i]`` (its input in a
-        prefill of all 4097 tokens): a prefill of the first 4096 from the
+        prefill of all n + 1 tokens): a prefill of the first n from the
         zero state and one step on the last, against that prefill's state
         ``want[i]`` and the change ``ys[i] - x`` its block made to the
         stream at the last token; the larger of the two errors, of max."""
         torch = self.torch
         from repro_torch.models import transformer
-        zero = transformer.init_state(m.cfg, 1, 4104, self.dev)
-        pos = torch.arange(4097, device=self.dev)[None]
+        zero = transformer.init_state(m.cfg, 1, n + 8, self.dev)
+        pos = torch.arange(n + 1, device=self.dev)[None]
         errs = []
         with torch.inference_mode():
             for i in ssm:
                 blk, x = m.layers[i], xs[i]
-                _, st, _ = blk(x[:, :4096], pos[:, :4096], zero[i])
-                y, st, _ = blk(x[:, 4096:], pos[:, 4096:], st)
+                _, st, _ = blk(x[:, :n], pos[:, :n], zero[i])
+                y, st, _ = blk(x[:, n:], pos[:, n:], st)
                 errs.append(max(
                     [self._rel(y[:, -1] - x[:, -1], ys[i] - x[:, -1])]
                     + [self._rel(st[k], want[i][k]) for k in st]))
@@ -3307,14 +3329,16 @@ class Smoke:
 
     # -- phase 11: the model mesh and expert-parallel MoE ------------------
     def phase11_model_mesh(self):
-        """The MoE FFN expert-parallel over a model mesh of ranks sharing
-        the card (gloo, ``launch/ep_world.py``): (a) the two MoE smoke
-        configs at (1, 2) and (2, 2), card against CPU in one world; (b)
-        deepseek-v2-236b at full width (4 of 60 layers) over (1, 2)
-        against world 1's ``moe_ffn_dense``; (c) a world-1 checkpoint
-        restored onto (1, 2) and ``launch.train --mesh single`` at world
-        1.  No rank launches a join kernel (each rank's counts, read as
-        its job ends, and this process's)."""
+        """The model mesh over ranks sharing the card (gloo,
+        ``launch/ep_world.py``): (a) the two MoE smoke configs at (1, 2)
+        and (2, 2), card against CPU in one world; (b) deepseek-v2-236b at
+        full width (4 of 60 layers) over (1, 2) against world 1's
+        ``moe_ffn_dense``; (c) a world-1 checkpoint restored onto (1, 2)
+        and ``launch.train --mesh single`` at world 1; (d) the dense GQA
+        leaves as their ``param_specs`` blocks: phi4-mini's train step
+        over (1, 2) and (2, 1) at smoke size card against CPU and at full
+        width against world 1.  No rank launches a join kernel (each
+        rank's counts, read as its job ends, and this process's)."""
         torch = self.torch
         t0 = time.perf_counter()
         self.reset_launches()
@@ -3322,6 +3346,7 @@ class Smoke:
         self.ep = {"smoke": self._ep_smoke()}
         self.ep["full_width"] = self._ep_full_width()
         self.ep["checkpoint"] = self._ep_checkpoint()
+        self.ep["dense_tp"] = self._dense_tp()
         launches = [self.read_launches()] + self.ep_launches
         check(not any(v for l in launches for v in l.values()),
               f"phase 11 launched a join kernel: {launches}")
@@ -3348,14 +3373,20 @@ class Smoke:
         the CPU with the same weights (drawn on the CPU from seed 0), a
         prefill of 8 x 64 tokens (``moe_ffn_ep``), 8 teacher-forced decode
         steps (``moe_ffn_ep_replicated_dsharded``; fsdp ``("data",)``) and
-        one ``make_train_step(use_ep=True)`` step on the same tokens;
+        one ``make_train_step(use_ep=True)`` step on the same tokens
+        (the attention, dense FFN and embedding leaves as their
+        ``param_specs`` blocks), and the same step on the CPU on weights
+        nudged one ulp (the CPU's own f32 floor on this draw); for
+        llama4-maverick also that step with no mesh (world 1 in each rank)
+        on the card, on the CPU and on the CPU nudged, held alike;
         ``moe_ffn_ep_replicated`` called directly; and on the card
         ``moe_block_sharded`` at a decode of 8 tokens with a capacity at
         which nothing drops (E / k).  Each rank: router ids of every call
         equal; prefill and decode logits within 1e-4 of max |logit| (3e-2
         where a bf16 cache element rounded the other way); loss within
         1e-5 relative, ``lr`` equal, ``grad_norm`` 1e-3, every leaf of
-        ``m`` within 1e-3 of its max; the direct call's output within
+        ``m`` within 1e-3 of its max, each tolerance raised to the CPU's
+        floor where that is larger (printed); the direct call's output within
         1e-5 of max and its ids equal; the block's decode within 1e-5 of
         max |out| of ``moe_ffn_dense`` on the card (f32; at (2, 2) the
         d_model contraction is split over ``fsdp`` and its parts summed),
@@ -3380,6 +3411,19 @@ class Smoke:
                     jobs += [("model", dict(model, device=dev)),
                              ("ep_fn", dict(rep, device=dev))]
                     keys += [(arch, "model", dev), (arch, "rep", dev)]
+                # the CPU's floor: the train step on weights nudged one ulp
+                jobs.append(("model", dict(model, device="cpu", nudge=1,
+                                           prompt=None)))
+                keys.append((arch, "floor", "cpu"))
+                if arch == ZOO_MOE[0]:
+                    # the same step with no mesh (world 1 in the rank),
+                    # card, CPU and the CPU's floor
+                    one = dict(model, whole=True, prompt=None)
+                    jobs += [("model", dict(one, device="cuda")),
+                             ("model", dict(one, device="cpu")),
+                             ("model", dict(one, device="cpu", nudge=1))]
+                    keys += [(arch, "world1", "cuda"), (arch, "world1", "cpu"),
+                             (arch, "world1_floor", "cpu")]
                 mo = cfg.moe
                 blocks[arch] = dict(
                     rep, fn="block", device="cuda",
@@ -3468,15 +3512,17 @@ class Smoke:
             check(max(errs.values()) <= tol, f"{arch} {shape} rank {r}: "
                   f"logits card vs cpu {errs} > {tol} ({flips} cache flips)")
             mc, mh = card["metrics"], cpu["metrics"]
-            loss_err = abs(mc["loss"] - mh["loss"]) / abs(mh["loss"])
-            gn_err = abs(mc["grad_norm"] - mh["grad_norm"]) / mh["grad_norm"]
-            m_err = max(float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
-                        for a, b in zip(_leaves(card["m"]), _leaves(cpu["m"])))
-            check(loss_err <= 1e-5 and mc["lr"] == mh["lr"]
-                  and gn_err <= 1e-3 and m_err <= 1e-3,
+            loss_err, gn_err, m_err = _step_dist(card, cpu)
+            floor = dict(zip(("loss", "grad_norm", "m"), _step_dist(
+                res[idx[(arch, "floor", "cpu")]], cpu)))
+            tol = {"loss": max(1e-5, floor["loss"]),
+                   "grad_norm": max(1e-3, floor["grad_norm"]),
+                   "m": max(1e-3, floor["m"])}
+            check(loss_err <= tol["loss"] and mc["lr"] == mh["lr"]
+                  and gn_err <= tol["grad_norm"] and m_err <= tol["m"],
                   f"{arch} {shape} rank {r}: train step card vs cpu loss "
                   f"{loss_err} grad_norm {gn_err} m {m_err} lr {mc['lr']} "
-                  f"{mh['lr']}")
+                  f"{mh['lr']} (tolerances {tol}, the CPU's floor {floor})")
             check(np.isfinite(mc["loss"]) and mc["aux"] > 0,
                   f"{arch} {shape} rank {r}: train metrics {mc}")
             rep_err = float(np.abs(rc["out"] - rh["out"]).max()
@@ -3491,10 +3537,28 @@ class Smoke:
                     :card["prefill_calls"]]), sum(card["dropped"][
                         card["prefill_calls"]:])],
                 "loss_rel_err": loss_err, "grad_norm_rel_err": gn_err,
-                "m_err": m_err, "loss": mc["loss"], "aux": mc["aux"],
+                "m_err": m_err, "cpu_floor": floor, "tol": tol,
+                "loss": mc["loss"], "aux": mc["aux"],
                 "replicated_err": rep_err,
                 "collectives_card": card["ledger"]["by_axis"],
                 "routes_card": card["ledger"]["by_route"]})
+            if (arch, "world1", "cuda") in idx:
+                # the same step with no mesh, held as the mesh's is
+                one = [res[idx[(arch, k, d)]] for k, d in (
+                    ("world1", "cuda"), ("world1", "cpu"),
+                    ("world1_floor", "cpu"))]
+                names = ("loss", "grad_norm", "m")
+                got = dict(zip(names, _step_dist(one[0], one[1])))
+                fl = dict(zip(names, _step_dist(one[2], one[1])))
+                tol1 = {k: max(tol0, fl[k]) for k, tol0 in
+                        (("loss", 1e-5), ("grad_norm", 1e-3), ("m", 1e-3))}
+                check(all(got[k] <= tol1[k] for k in tol1)
+                      and one[0]["metrics"]["lr"] == one[1]["metrics"]["lr"],
+                      f"{arch} {shape} rank {r}: world 1 (no mesh) train "
+                      f"step card vs cpu {got} (tolerances {tol1}, the "
+                      f"CPU's floor {fl})")
+                row["ranks"][-1]["world1_no_mesh"] = {
+                    "card_vs_cpu": got, "cpu_floor": fl}
         return row
 
     def _ep_full_width(self):
@@ -3740,6 +3804,122 @@ class Smoke:
                "mesh_single_error": proc.stderr.strip().splitlines()[-1]}
         log("phase 11 (c): checkpoint world 1 -> (1, 2) and --mesh single: "
             + json.dumps(out))
+        return out
+
+    def _dense_tp(self):
+        """(d) The dense GQA leaves over a model mesh: one world of two
+        ranks sharing the card, as (1, 2) and as (2, 1) over ``("data",
+        "model")`` (``_dense_tp_rank``).  Smoke: phi4-mini's smoke config
+        in float32 on each mesh, on the card and on the CPU in the world
+        (weights from seed 0 drawn on the CPU; a forward of 8 x 64 and
+        one train step), and the CPU's step on weights nudged one ulp:
+        logits within 1e-4 of max |logit|, loss 1e-5 relative, ``lr``
+        equal, ``grad_norm`` and each leaf of ``m`` 1e-3 of its max, each
+        raised to the CPU's floor where larger.  Full width: phi4-mini-
+        3.8b (d 3072, 24 / 8 heads, d_ff 8192, vocab 200 064, tied) cut to
+        ``DENSE_TP_LAYERS`` layers, phase 10's settings (f32 masters, bf16
+        compute, remat, AdamW, warmup 1 of 6), two steps on two batches of
+        8 x 128: world 1 on each rank in turn (the other waiting), then
+        each mesh with each rank holding its blocks, against world 1:
+        every loss finite and ``grad_norm`` > 0, ``lr`` equal, each step's
+        loss, the logits of the first two rows (before step 1), and layer
+        0 and the embedding's two uses (lookup and tied logits) taught on
+        fixed inputs under a fixed cotangent (outputs and every gradient,
+        each rank's blocks), within ``DENSE_TP_TOL`` (the loss and the
+        logits raised to twice world 1's own floor where that is larger:
+        world 1 on rank 0 again on weights nudged one ulp, whose taught
+        results are printed).  The whole model's gradients are printed
+        beside that floor, not held: in bf16 this random model's
+        gradients are chaos at every depth tried (on the card a one-ulp
+        nudge moves ``m`` by about its own norm at 2, 4 and 8 layers), so
+        the taught layer carries the gradient check at full width.
+        Recorded: step ms a rank (events) against world
+        1's, each rank's peak memory, collective calls and bytes by axis
+        and route."""
+        np = self.np
+        from repro_torch.configs import get_smoke
+        rng = np.random.default_rng(26)
+        smoke = get_smoke(ZOO_ARCH)
+        toks = rng.integers(0, smoke.vocab_size, (8, 65))
+        base = {"arch": ZOO_ARCH, "dtype": "float32", "forward": toks[:, :-1],
+                "train": {"tokens": toks[:, :-1], "labels": toks[:, 1:]}}
+        full = rng.integers(0, 200_064, (2, 8, 129))
+        t0 = time.perf_counter()
+        ranks = self._world((1, 2), _dense_tp_rank, {
+            "smoke": [dict(base, device="cuda"), dict(base, device="cpu"),
+                      dict(base, device="cpu", nudge=1)],
+            "layers": DENSE_TP_LAYERS, "tokens": full}, timeout=600)
+        wall = time.perf_counter() - t0
+        out = {"world_wall_s": wall, "layers": DENSE_TP_LAYERS,
+               "smoke": {}, "full": {}}
+        for mesh in ("1x2", "2x1"):
+            rows = []
+            for r, res in enumerate(ranks):
+                card, cpu, nudged = res["smoke"][mesh]
+                fwd = float(np.abs(card["forward"] - cpu["forward"]).max()
+                            / np.abs(cpu["forward"]).max())
+                errs = dict(zip(("loss", "grad_norm", "m"),
+                                _step_dist(card, cpu)))
+                floor = dict(zip(("loss", "grad_norm", "m"),
+                                 _step_dist(nudged, cpu)))
+                tol = {"loss": max(1e-5, floor["loss"]),
+                       "grad_norm": max(1e-3, floor["grad_norm"]),
+                       "m": max(1e-3, floor["m"])}
+                check(fwd <= 1e-4 and card["metrics"]["lr"]
+                      == cpu["metrics"]["lr"]
+                      and all(errs[k] <= tol[k] for k in tol),
+                      f"(d) smoke {mesh} rank {r}: card vs cpu logits {fwd}"
+                      f", step {errs} (tolerances {tol})")
+                rows.append({"logits_err": fwd, **errs, "cpu_floor": floor,
+                             "collectives_card": card["train_ledger"][
+                                 "by_axis"]})
+            out["smoke"][mesh] = rows
+        w1 = [res["world1"] for res in ranks]
+        out["full"]["world1"] = w1
+
+        def apart(row, want):
+            """Per step: loss and grad_norm relative, ``m``'s distances."""
+            return [{"loss": abs(g["loss"] / w["loss"] - 1),
+                     "grad_norm": abs(g["grad_norm"] / w["grad_norm"] - 1),
+                     "m_tree": t, "m_matrix": mx,
+                     "lr_equal": g["lr"] == w["lr"]}
+                    for g, w, t, mx in zip(row["metrics"], want["metrics"],
+                                           row["m_tree"], row["m_matrix"])]
+        nudged = ranks[0]["world1_nudged"]
+        floor = {"steps": apart(nudged, w1[0]),
+                 "logits": nudged["logits_err"], "teacher": nudged["teacher"]}
+        tol = {"loss": [max(DENSE_TP_TOL["loss"], 2 * f["loss"])
+                        for f in floor["steps"]],
+               "logits": max(DENSE_TP_TOL["logits"], 2 * floor["logits"]),
+               "teacher": DENSE_TP_TOL["teacher"]}
+        out["full"].update(world1_floor=floor, tol=tol)
+        for mesh in ("1x2", "2x1"):
+            rows = [res["full"][mesh] for res in ranks]
+            for r, row in enumerate(rows):
+                row["vs_world1"] = apart(row, w1[r])
+                row["step_ms_vs_world1"] = [a / b for a, b in zip(
+                    row["step_ms"], w1[r]["step_ms"])]
+            out["full"][mesh] = rows
+        log(f"phase 11 (d): phi4-mini dense GQA leaves as param_specs blocks"
+            f" over (1, 2) and (2, 1), smoke card vs cpu and full width "
+            f"{DENSE_TP_LAYERS} layers vs world 1 ({self.smi}): "
+            + json.dumps(out))
+        for mesh in ("1x2", "2x1"):
+            for r, row in enumerate(out["full"][mesh]):
+                bad = {k: v for k, v in row["teacher"].items()
+                       if not v <= tol["teacher"]}
+                check(row["logits_err"] <= tol["logits"] and not bad,
+                      f"(d) {mesh} rank {r} vs world 1: logits "
+                      f"{row['logits_err']} (tolerance {tol['logits']}), "
+                      f"layer 0 and the embedding taught {bad} (tolerance "
+                      f"{tol['teacher']}; world 1 nudged one ulp "
+                      f"{floor['teacher']})")
+                for i, (got, d) in enumerate(zip(row["metrics"],
+                                                 row["vs_world1"])):
+                    check(np.isfinite(got["loss"]) and got["grad_norm"] > 0
+                          and d["lr_equal"] and d["loss"] <= tol["loss"][i],
+                          f"(d) {mesh} rank {r} step {i + 1} vs world 1: "
+                          f"{got}, {d} (loss tolerance {tol['loss'][i]})")
         return out
 
     # -- phase 12: the reference's invariants on the card -------------------
@@ -4238,6 +4418,189 @@ def _fleet_world_rank(mesh, dev, p):
     return out
 
 
+# -- phase 11 (d): the job each rank of its world runs ----------------------
+
+def _dense_tp_rank(mesh, dev, p):
+    """One rank of phase 11 (d)'s world (built as (1, 2); the (2, 1) mesh
+    is made over the same ranks).  Smoke: ``ep_world``'s ``model`` job for
+    each payload of ``smoke`` on each mesh.  Full width: phi4-mini-3.8b
+    cut to ``layers`` layers, f32 masters drawn on the card from seed 0;
+    world 1 on each rank in turn (the others wait at a barrier): layer 0
+    and the embedding taught (``teacher``), the logits of the first two
+    rows of the first batch, then two steps on the two batches of
+    ``tokens``, keeping what they give and ``m`` after each step; world 1
+    on weights nudged one ulp on rank 0 (its floor); then on each mesh
+    the model drawn by each rank in turn (a draw holds a whole leaf's f32
+    scratch), its blocks kept, the same calls.  Against world 1's: the
+    taught outputs and gradients, the logits (of max |logit|), and after
+    each step ``m``'s distance over the rank's blocks, of the whole tree
+    and of the worst matrix leaf, each relative to world 1's norm there.
+    Step ms by CUDA events, peak memory a run, the ledger of the two
+    steps."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import AxisEnv, block_slices, make_mesh
+    from repro_torch.launch.ep_world import JOBS, nudge_
+    from repro_torch.models import steps, transformer
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw
+    meshes = {"1x2": mesh, "2x1": make_mesh((2, 1), ("data", "model"))}
+    out = {"smoke": {}, "full": {}}
+    for name, m in meshes.items():
+        out["smoke"][name] = [JOBS["model"](m, torch.device(q["device"]), q)
+                              for q in p["smoke"]]
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), num_layers=p["layers"])
+    tcfg = TrainConfig(total_steps=6, warmup_steps=1)
+    batches = [{"tokens": torch.as_tensor(t[:, :-1], device=dev),
+                "labels": torch.as_tensor(t[:, 1:], device=dev)}
+               for t in p["tokens"]]
+    first = batches[0]["tokens"][:2]
+    specs = dict(tree_leaves(transformer.local_specs(
+        cfg, AxisEnv.from_mesh(mesh))))
+    spec_of = {}        # parameter name -> its spec, a layer's for a scan
+    for path, _, names in transformer.reference_leaves(cfg):
+        sp = specs[path]
+        spec_of.update((n, sp[1:] if path[0] == "scanned" else sp)
+                       for n in names)
+
+    def teacher(model, on):
+        """Layer 0, and the embedding's two uses (the lookup of ``first``
+        and the tied logits), each on fixed inputs (seed 5) under a fixed
+        cotangent: the outputs and the gradients (this rank's blocks),
+        free of the composed model's chaos."""
+        env = AxisEnv.from_mesh(on) if on is not None else None
+        cdt = model.compute_dtype
+        g = torch.Generator(device=dev).manual_seed(5)
+        b, s = first.shape
+        x, h = (torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+                .to(cdt).requires_grad_() for _ in range(2))
+        cot = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        cot_l = torch.randn((b, s, cfg.vocab_size), generator=g, device=dev)
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        blk = model.layers[0]
+        y = blk(x, pos, None, None, None, None, False, on, env)[0]
+        (y.float() * cot).sum().backward()
+        res = {"block_out": y.detach().float(), "block_dx": x.grad.float()}
+        res.update((f"layers.0.{n}", q.grad.float())
+                   for n, q in blk.named_parameters())
+        emb = model.embed["embedding"]
+        if on is not None and on.size > 1:
+            e, table = transformer._embed_tp(first, emb, cdt, on, env)
+            logits = model._logits_tp(h, table, on, env)
+        else:
+            e = torch.nn.functional.embedding(first, emb).to(cdt)
+            logits = torch.matmul(h, emb.to(cdt).T)
+        ((e.float() * cot).sum() + (logits.float() * cot_l).sum()).backward()
+        res.update({"embed": e.detach().float(), "logits": logits.detach()
+                    .float(), "embed.embedding": emb.grad.float(),
+                    "logits_dh": h.grad.float()})
+        model.zero_grad(set_to_none=True)
+        return res
+
+    def teacher_apart(got, want, on):
+        """||got - want|| / ||want|| of each, a parameter's gradient
+        against its block of world 1's."""
+        out = {}
+        for k, w in want.items():
+            if k in spec_of and on is not None:
+                w = w[block_slices(on, w.shape, spec_of[k])]
+            out[k] = float((got[k].double() - w.double()).norm()
+                           / w.double().norm())
+        return out
+
+    def run(on, keep=None, nudge=None):
+        """On ``on`` (None: world 1), drawn rank by rank, with ``nudge``
+        (a seed) every weight first moved one ulp up or down: ``teacher``,
+        the logits of ``first``, and two steps.  Without ``keep`` the
+        teacher's results, the logits and ``m`` after each step are
+        returned; with it (world 1's) the distances from them are
+        recorded."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = None
+        for r in range(mesh.size if on is not None else 0):
+            if r == mesh.rank:
+                model = transformer.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                    mesh=on)
+                torch.cuda.synchronize()
+            dist.barrier()
+        if on is None:
+            model = transformer.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if nudge is not None:
+            nudge_(model.parameters(), nudge)
+        row = {"metrics": [], "step_ms": [], "m_tree": [], "m_matrix": []}
+        taught = teacher(model, on)
+        with torch.no_grad():
+            logits = model(first, mesh=on)[0].float()
+        if keep is None:
+            kept = {"teacher": taught, "logits": logits, "m": []}
+        else:
+            kept = None
+            row["teacher"] = teacher_apart(taught, keep["teacher"], on)
+            want = keep["logits"]
+            row["logits_err"] = float((logits - want).abs().max()
+                                      / want.abs().max())
+        del logits, taught
+        opt = adamw.init_opt_state(dict(model.named_parameters()))
+        step = steps.make_train_step(cfg, tcfg, mesh=on)
+        ledger = (on or mesh).axis_ledger
+        ledger.reset()
+        for i, batch in enumerate(batches):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            opt, met = step(model, opt, batch)
+            ev[1].record()
+            ev[1].synchronize()
+            row["step_ms"].append(ev[0].elapsed_time(ev[1]))
+            row["metrics"].append({k: float(v) for k, v in met.items()})
+            if keep is None:
+                kept["m"].append({n: t.clone() for n, t in opt["m"].items()})
+                continue
+            # ||m - world 1's|| over this rank's blocks, of the whole tree
+            # (a replicated leaf is on every rank) and of the worst matrix
+            # leaf, each relative to world 1's norm there
+            d2 = n2 = worst = 0.0
+            for n, got in opt["m"].items():
+                whole = keep["m"][i][n]
+                ref = whole[block_slices(on, whole.shape, spec_of[n])
+                            if on is not None else ...].double()
+                dd = float((got.double() - ref).pow(2).sum())
+                nn = float(ref.pow(2).sum())
+                d2, n2 = d2 + dd, n2 + nn
+                if ref.dim() >= 2:
+                    worst = max(worst, (dd / nn) ** 0.5)
+            row["m_tree"].append((d2 / n2) ** 0.5)
+            row["m_matrix"].append(worst)
+        row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        row["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in model.parameters())
+        row["collectives"] = ledger.summary()
+        del model, opt, step
+        torch.cuda.empty_cache()
+        return row, kept
+
+    kept = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            out["world1"], kept = run(None)
+        dist.barrier()
+    if mesh.rank == 0:
+        # world 1's own floor: its forward and steps on weights nudged one
+        # ulp
+        out["world1_nudged"], _ = run(None, keep=kept, nudge=1)
+    dist.barrier()
+    for name, m in meshes.items():
+        out["full"][name], _ = run(m, keep=kept)
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 11 (b): helpers, and the job each rank of its world runs ---------
 # (module-level, so that the spawned ranks, which import this file, find
 # them)
@@ -4389,6 +4752,17 @@ def _ep_full_width_rank(mesh, dev, p):
     del state, model
     torch.cuda.empty_cache()
     return row
+
+
+def _step_dist(got, want):
+    """(loss, grad_norm, m) distances of two ``model`` job results' train
+    steps: relative, and each leaf of ``m`` from its max."""
+    import numpy as np
+    a, b = got["metrics"], want["metrics"]
+    return (abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"],
+            max(float(np.abs(x - y).max() / (np.abs(y).max() + 1e-30))
+                for x, y in zip(_leaves(got["m"]), _leaves(want["m"]))))
 
 
 def _leaves(tree):

@@ -293,15 +293,18 @@ def _group(mesh, axes):
     return group, members, [order.index(m) for m in members]
 
 
-def axis_all_reduce(x: torch.Tensor, mesh, axes, label: str) -> torch.Tensor:
-    """The sum of ``x`` over ``axes`` (a new tensor; ``x`` is kept).  A
-    CUDA tensor goes to gloo on the card."""
+def axis_all_reduce(x: torch.Tensor, mesh, axes, label: str,
+                    op: str = "sum") -> torch.Tensor:
+    """The sum (or, with ``op="max"``, the maximum) of ``x`` over ``axes``
+    (a new tensor; ``x`` is kept).  A CUDA tensor goes to gloo on the
+    card."""
     group, members, _ = _group(mesh, axes)
     if group is None:
         return x.clone()
     import torch.distributed as dist
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op], group=group)
     mesh.axis_ledger.record(label, "all_reduce", "gloo", _nbytes(out),
                             len(members))
     return out

@@ -426,14 +426,15 @@ def shard_leaf(mesh, x, spec: Spec):
     return x[sl].contiguous()
 
 
-def unshard_leaf(mesh, block, spec: Spec):
+def unshard_leaf(mesh, block, spec: Spec, label: str = "checkpoint"):
     """The whole tensor from every rank's ``block`` under ``spec`` (all
-    ranks call it; all-gathers over each sharded dim's axes)."""
+    ranks call it; all-gathers over each sharded dim's axes, booked under
+    ``label``)."""
     from repro_torch.distributed import collectives
     spec = Spec(*spec)
     for dim in range(block.ndim):
         axes = spec.axes(dim)
         if axes:
             block = collectives.axis_all_gather(block, mesh, axes, dim,
-                                               "checkpoint")
+                                               label)
     return block

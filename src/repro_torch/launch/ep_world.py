@@ -18,8 +18,9 @@ The jobs (``payload`` keys in each docstring):
     smoke config's MoE weights, as the reference's ``shard_map`` runs it;
     the output, ``aux``, this rank's router ids and, with ``grad``, the
     gradients of ``sum(out * wgt) + aux_weight * aux``;
-  * ``model``: a smoke MoE model over the mesh with ``use_ep``: a
-    prefill, teacher-forced decode steps, and a train step;
+  * ``model``: a smoke model over the mesh (its dense GQA leaves and
+    experts sharded, ``use_ep``): a forward, a prefill, teacher-forced
+    decode steps, and a train step;
   * ``restore``: a checkpoint restored onto the mesh;
   * ``save``: a model's tree gathered from the ranks' blocks and written
     by rank 0;
@@ -167,79 +168,140 @@ def _job_ep_fn(mesh, dev, p: dict) -> dict:
     return res
 
 
-def _draw(cfg, mesh, dev, p: dict):
-    """The model over the mesh: drawn from ``seed`` on the CPU and this
-    rank's blocks kept, or this rank's blocks of the whole ``tree``
-    (numpy, the reference's layout)."""
+def nudge_(tensors, seed: int) -> None:
+    """Move every element of ``tensors`` one ulp up or down in place, the
+    side drawn from ``seed`` (a generator on their device) tensor by
+    tensor in the order given: another draw of the rounding."""
     import torch
-    from repro_torch.distributed.mesh import AxisEnv, shard_leaf
+    g = None
+    with torch.no_grad():
+        for t in tensors:
+            if g is None:
+                g = torch.Generator(device=t.device).manual_seed(seed)
+            up = torch.rand(t.shape, generator=g, device=t.device) < 0.5
+            inf = torch.full_like(t, float("inf"))
+            t.copy_(torch.nextafter(t, torch.where(up, inf, -inf)))
+
+
+def sorted_leaves(tree: dict) -> list:
+    """The leaves of a nested dict, keys sorted at every level."""
+    from repro_torch.models.layers import tree_leaves
+    return [t for _, t in sorted(tree_leaves(tree), key=lambda pt: pt[0])]
+
+
+def _draw(cfg, mesh, dev, p: dict):
+    """The model over the mesh (``None``: whole): drawn from ``seed`` on
+    the CPU and this rank's blocks kept, or this rank's blocks of the
+    whole ``tree`` (numpy, the reference's layout); with ``nudge`` (a
+    seed) that tree, or the whole drawn one, first ``nudge_``d in the
+    reference's leaf order (keys sorted)."""
+    import torch
+    from repro_torch.convert import model_tree_to_numpy
+    from repro_torch.distributed.mesh import shard_leaf
     from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_map
     from repro_torch.models.transformer import _zip_map
-    if p.get("tree") is not None:
-        specs = transformer.local_specs(cfg, AxisEnv.from_mesh(mesh))
-        tree = _zip_map(lambda a, s: shard_leaf(
-            mesh, torch.as_tensor(a), s).clone().to(dev), p["tree"], specs)
-        return transformer.Transformer(cfg, transformer.weights_from_tree(
-            cfg, tree, mesh))
-    return transformer.init_params(
-        cfg, torch.Generator().manual_seed(p.get("seed", 0)), "cpu",
-        mesh=mesh).to(dev)
+    tree = p.get("tree")
+    if p.get("nudge") is not None:
+        if tree is None:
+            tree = model_tree_to_numpy(cfg, transformer.init_params(
+                cfg, torch.Generator().manual_seed(p.get("seed", 0)), "cpu"))
+        tree = tree_map(lambda a: torch.tensor(np.asarray(a)), tree)
+        nudge_(sorted_leaves(tree), p["nudge"])
+    if tree is None:
+        return transformer.init_params(
+            cfg, torch.Generator().manual_seed(p.get("seed", 0)), "cpu",
+            mesh=mesh).to(dev)
+    if mesh is not None:
+        specs = transformer.mesh_specs(cfg, mesh)
+        tree = _zip_map(lambda a, s: shard_leaf(mesh, torch.as_tensor(a), s),
+                        tree, specs)
+    tree = tree_map(lambda a: torch.as_tensor(a).clone().to(dev), tree)
+    return transformer.Transformer(cfg, transformer.weights_from_tree(
+        cfg, tree, mesh))
 
 
 def _job_model(mesh, dev, p: dict) -> dict:
-    """An MoE model over the mesh with ``use_ep`` (``_draw``).
-    ``prompt`` (B, S) prefilled into a cache of ``capacity`` slots, then
-    each column of ``decode`` (B, n) decoded in turn (teacher-forced).
-    ``train`` {tokens, labels}: one ``make_train_step(use_ep=True)`` step
-    after (AdamW at ``TrainConfig()``).  Returns the prefill's last
-    logits, every decode step's, the MoE layers' router ids and dropped
-    choices a call (prefill calls first), the cache after the last step,
-    the collective ledger of the prefill and decode, the train metrics and
-    the optimizer's ``m`` gathered whole (the reference's tree)."""
+    """A smoke model over the mesh (``_draw``; with ``whole`` the whole
+    model and no mesh, a world of one in this process), the MoE FFNs with
+    ``use_ep``.  ``forward`` (B, S): the logits of a forward with no
+    state.  ``prompt`` (B, S) prefilled into a cache of ``capacity``
+    slots, then each column of ``decode`` (B, n) decoded in turn
+    (teacher-forced).  ``train`` {tokens, labels}: one ``make_train_step``
+    step after (AdamW at ``TrainConfig()``, or ``tcfg``'s overrides).
+    Returns the forward's logits, the prefill's last logits, every decode
+    step's, the MoE layers' router ids and dropped choices a call (prefill
+    calls first), the cache after the last step, the collective ledger of
+    the prefill and decode (``ledger``) and of the train step
+    (``train_ledger``), the train metrics, the optimizer's ``m`` gathered
+    whole (the reference's tree) and this rank's block shapes (the
+    reference's layout)."""
     import torch
     from repro_torch.common.config import TrainConfig
     from repro_torch.distributed.mesh import AxisEnv
     from repro_torch.models import moe, steps, transformer
+    from repro_torch.models.layers import tree_leaves
     from repro_torch.optim import adamw
     cfg = _cfg(p)
-    model = _draw(cfg, mesh, dev, p)
+    on = None if p.get("whole") else mesh
+    model = _draw(cfg, on, dev, p)
+    named = {n: t.detach() for n, t in model.named_parameters()}
+    row = {"blocks": {"/".join(path): list(t.shape) for path, t in
+                      tree_leaves(transformer.tree_from_weights(cfg, named))}}
+    if p.get("forward") is not None:
+        with torch.no_grad():
+            row["forward"] = _np(model(torch.as_tensor(p["forward"]).to(dev),
+                                       use_ep=True, mesh=on)[0])
     calls = []
     hooks = [b.ffn.register_forward_hook(lambda mod, i, o: calls.append(
         (mod.stats["ids"].cpu().numpy(), int(mod.stats["dropped"]))))
         for b in model.layers if isinstance(b.ffn, moe.MoEFFN)]
     mesh.axis_ledger.reset()
-    prompt = torch.as_tensor(p["prompt"]).to(dev)
-    b, s = prompt.shape
-    prefill = steps.make_prefill_step(cfg, p.get("capacity", s + 16),
-                                      use_ep=True, mesh=mesh)
-    state, last = prefill(model, prompt)
-    row = {"prefill_calls": len(calls), "prefill": _np(last)}
-    decode = steps.make_decode_step(cfg, use_ep=True, mesh=mesh)
-    toks = torch.as_tensor(p.get("decode", np.zeros((b, 0), np.int64))).to(dev)
-    logits = []
-    for j in range(toks.shape[1]):
-        pos = torch.full((b, 1), s + j, dtype=torch.int32, device=dev)
-        state, lg = decode(model, state, toks[:, j:j + 1], pos)
-        logits.append(_np(lg))
-    row["decode"] = np.stack(logits) if logits else None
-    row["cache"] = [{n: _np(t) for n, t in layer.items()
-                     if torch.is_tensor(t)} for layer in state]
+    if p.get("prompt") is not None:
+        prompt = torch.as_tensor(p["prompt"]).to(dev)
+        b, s = prompt.shape
+        prefill = steps.make_prefill_step(cfg, p.get("capacity", s + 16),
+                                          use_ep=True, mesh=on)
+        state, last = prefill(model, prompt)
+        row.update(prefill_calls=len(calls), prefill=_np(last))
+        decode = steps.make_decode_step(cfg, use_ep=True, mesh=on)
+        toks = torch.as_tensor(p.get("decode", np.zeros((b, 0), np.int64))
+                               ).to(dev)
+        logits = []
+        for j in range(toks.shape[1]):
+            pos = torch.full((b, 1), s + j, dtype=torch.int32, device=dev)
+            state, lg = decode(model, state, toks[:, j:j + 1], pos)
+            logits.append(_np(lg))
+        row["decode"] = np.stack(logits) if logits else None
+        row["cache"] = [{n: _np(t) for n, t in layer.items()
+                         if torch.is_tensor(t)} for layer in state]
+        del state
     row["ledger"] = mesh.axis_ledger.summary()
     for h in hooks:
         h.remove()
     row["ids"] = [c[0] for c in calls]
     row["dropped"] = [c[1] for c in calls]
-    del state
     if p.get("train") is not None:
-        tcfg = TrainConfig()
+        tcfg = TrainConfig(**p.get("tcfg", {}))
         opt = adamw.init_opt_state(dict(model.named_parameters()))
-        step = steps.make_train_step(cfg, tcfg, use_ep=True, mesh=mesh)
+        step = steps.make_train_step(cfg, tcfg, use_ep=True, mesh=on)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in p["train"].items()}
+        mesh.axis_ledger.reset()
         opt, met = step(model, opt, batch)
+        row["train_ledger"] = mesh.axis_ledger.summary()
         row["metrics"] = {k: float(v) for k, v in met.items()}
-        specs = transformer.local_specs(cfg, AxisEnv.from_mesh(mesh))
-        row["m"] = _whole_tree(cfg, opt["m"], mesh, specs)
+        if on is None:
+            row["m"] = _np_tree(transformer.tree_from_weights(cfg, opt["m"]))
+        else:
+            specs = transformer.local_specs(cfg, AxisEnv.from_mesh(mesh))
+            row["m"] = _whole_tree(cfg, opt["m"], mesh, specs)
     return row
+
+
+def _np_tree(tree: dict) -> dict:
+    """A nested dict of tensors as numpy arrays."""
+    from repro_torch.models.layers import tree_map
+    return tree_map(_np, tree)
 
 
 def _whole_tree(cfg, named: dict, mesh, specs) -> dict:
@@ -288,11 +350,10 @@ def _job_save(mesh, dev, p: dict) -> dict:
     step ``step`` by rank 0."""
     import torch
     from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.distributed.mesh import AxisEnv
     from repro_torch.models import transformer
     cfg = _cfg(p)
     model = _draw(cfg, mesh, dev, p)
-    specs = transformer.local_specs(cfg, AxisEnv.from_mesh(mesh))
+    specs = transformer.mesh_specs(cfg, mesh)
     tree = _whole_tree(cfg, dict(model.named_parameters()), mesh, specs)
     if mesh.rank == 0:
         ckpt.save(p["dir"], p.get("step", 1), tree)

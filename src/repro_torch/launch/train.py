@@ -15,12 +15,16 @@ process; ``--mesh single|multi`` joins the world a ``torchrun``-style
 environment describes (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``; gloo) and builds the production mesh over it, (16, 16) or
 (2, 16, 16), which must have exactly 256 or 512 ranks (else the
-``ValueError`` names the size it needs).  That is all the mesh does here:
-the launcher then trains with ``use_ep=False``, as the reference's does,
-but the dense leaves are not sharded yet (ROADMAP queue 1), so every rank
-trains a redundant whole copy of the model on the same batches, with no
-collective, and rank 0 writes the checkpoints.  Prints one JSON report
-with the reference's keys.
+``ValueError`` names the size it needs).  That is all the mesh does here,
+as in the reference: its launcher jits ``make_train_step`` with no
+shardings over parameters drawn on the default device
+(``src/repro/launch/train.py:63``), so each rank trains a whole copy of
+the model on the same batches, with no collective, and rank 0 writes the
+checkpoints.  The sharded step, each rank holding its ``param_specs``
+blocks of the dense leaves (``transformer.local_specs``), is the train
+cell's: ``make_train_step(mesh=)`` over a model drawn with
+``init_params(mesh=)``.  Prints one JSON report with the reference's
+keys.
 """
 
 from __future__ import annotations
@@ -94,7 +98,8 @@ def train(arch: str, *, smoke: bool = True, steps_n: int = 50, batch: int = 8,
         raise ValueError(f"--mesh {mesh_kind}: use host, single or multi")
     if mesh_kind != "host":
         init_from_env()
-        # checks the world's size; the ranks then train redundant copies
+        # checks the world's size; the ranks then train whole copies, as
+        # the reference's launcher does
         make_production_mesh(multi_pod=mesh_kind == "multi")
     writer = world_rank() == 0
     dev = resolve_device(device)

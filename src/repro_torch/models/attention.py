@@ -19,7 +19,9 @@ from typing import Optional
 import torch
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.models.layers import ParamDef, ParamTree, rms_norm
+from repro_torch.distributed import collectives as coll
+from repro_torch.models.layers import (ParamDef, ParamTree, rms_norm,
+                                       row_parallel_sum, whole_leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -95,12 +97,10 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int, softcap: float = 0.0,
     return out.reshape(b, s, h, v.shape[-1]).to(v.dtype)
 
 
-def gqa_attention(params, x, positions, cfg: ModelConfig,
-                  cache: Optional[dict] = None,
-                  compute_dtype=torch.bfloat16, valid_from=None):
-    """params: ``wq``, ``wk``, ``wv``, ``wo``; x: (B, S, D); positions:
-    (B, S).  cache: ``{"k", "v": (B, T, Hkv, hd), "index": int}``, written
-    in place.  Returns (out, new_cache)."""
+def _gqa_heads(params, x, positions, cfg: ModelConfig, cache, compute_dtype,
+               valid_from):
+    """``gqa_attention`` up to the output projection: the heads' outputs
+    (B, S, H, hd) and the new cache."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(compute_dtype))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(compute_dtype))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(compute_dtype))
@@ -123,11 +123,44 @@ def gqa_attention(params, x, positions, cfg: ModelConfig,
         out = _sdpa(q, ck, cv, causal=True, q_offset=idx,
                     valid_from=valid_from, scores_dtype=sdt)
         new_cache = {"k": ck, "v": cv, "index": idx + s}
+    return out, new_cache
+
+
+def gqa_attention(params, x, positions, cfg: ModelConfig,
+                  cache: Optional[dict] = None,
+                  compute_dtype=torch.bfloat16, valid_from=None):
+    """params: ``wq``, ``wk``, ``wv``, ``wo``; x: (B, S, D); positions:
+    (B, S).  cache: ``{"k", "v": (B, T, Hkv, hd), "index": int}``, written
+    in place.  Returns (out, new_cache)."""
+    out, new_cache = _gqa_heads(params, x, positions, cfg, cache,
+                                compute_dtype, valid_from)
     # with a cache ``out`` is the cache's bf16: promote as JAX does
     wo = params["wo"].to(compute_dtype)
     dt = torch.promote_types(out.dtype, wo.dtype)
     out = torch.einsum("bshk,hkd->bsd", out.to(dt), wo.to(dt))
     return out, new_cache
+
+
+def gqa_attention_tp(params, x, positions, cfg: ModelConfig, mesh, env,
+                     compute_dtype=torch.bfloat16, valid_from=None):
+    """``gqa_attention`` on this rank's blocks over a model mesh, the body
+    of the train cell's sharded attention (no cache): ``params`` hold the
+    ``param_specs`` blocks, ``wq`` / ``wk`` / ``wv`` (d / fsdp, heads / tp,
+    hd) and ``wo`` (heads / tp, hd, d / fsdp); ``x`` (B_l, S, d) is this
+    rank's rows with d whole, ``positions`` and ``valid_from`` theirs.
+    The ``fsdp`` dims are gathered in the compute dtype (the backward, a
+    reduce-scatter, returns each block's gradient to its rank); the rank
+    runs its contiguous chunk of query heads and of KV heads, whose group
+    map ``h // g`` is the whole model's because ``tp`` divides the KV
+    heads; the partial products of ``wo`` are summed over ``tp``
+    (``row_parallel_sum``, the partial products in f32)."""
+    w = {n: coll.gather(params[n].to(compute_dtype), mesh, env.fsdp,
+                        2 if n == "wo" else 0, "fsdp")
+         for n in ("wq", "wk", "wv", "wo")}
+    out, _ = _gqa_heads(w, x, positions, cfg, None, compute_dtype,
+                        valid_from)
+    part = torch.einsum("bshk,hkd->bsd", out.float(), w["wo"].float())
+    return row_parallel_sum(part, mesh, env, compute_dtype)
 
 
 def gqa_cache_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
@@ -143,7 +176,10 @@ def gqa_cache_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
 
 class GQAAttention(torch.nn.Module):
     """``gqa_attention`` over parameters named and shaped as the
-    reference's ``attn`` subtree."""
+    reference's ``attn`` subtree.  Over a model mesh they hold this
+    rank's ``param_specs`` blocks: ``forward`` with the ``mesh`` gathers
+    them whole (a call with a cache), and ``forward_tp`` runs this rank's
+    heads (``gqa_attention_tp``)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict,
                  compute_dtype: torch.dtype):
@@ -153,10 +189,18 @@ class GQAAttention(torch.nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
 
-    def forward(self, x, positions, cache=None, valid_from=None):
-        params = {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+    def params(self) -> dict:
+        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+
+    def forward(self, x, positions, cache=None, valid_from=None, mesh=None):
+        params = (self.params() if mesh is None else whole_leaves(
+            self, gqa_defs(self.cfg), mesh, self.compute_dtype))
         return gqa_attention(params, x, positions, self.cfg, cache,
                              self.compute_dtype, valid_from=valid_from)
+
+    def forward_tp(self, x, positions, mesh, env, valid_from=None):
+        return gqa_attention_tp(self.params(), x, positions, self.cfg, mesh,
+                                env, self.compute_dtype, valid_from)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.mesh import AxisEnv, unshard_leaf
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -149,10 +152,69 @@ def silu(g: torch.Tensor) -> torch.Tensor:
     return _Silu.apply(g)
 
 
-def swiglu(x: torch.Tensor, w_gate, w_up, w_down, compute_dtype) -> torch.Tensor:
+def _swiglu_hidden(x: torch.Tensor, w_gate, w_up, compute_dtype):
     g = torch.einsum("...d,df->...f", x, w_gate.to(compute_dtype))
     u = torch.einsum("...d,df->...f", x, w_up.to(compute_dtype))
-    return torch.einsum("...f,fd->...d", silu(g) * u, w_down.to(compute_dtype))
+    return silu(g) * u
+
+
+def swiglu(x: torch.Tensor, w_gate, w_up, w_down, compute_dtype) -> torch.Tensor:
+    return torch.einsum("...f,fd->...d",
+                        _swiglu_hidden(x, w_gate, w_up, compute_dtype),
+                        w_down.to(compute_dtype))
+
+
+def row_parallel_sum(part: torch.Tensor, mesh, env,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The sum over ``env.tp`` of this rank's f32 partial product (a
+    row-split output projection's, its operands widened from ``dtype``,
+    so unrounded), rounded once to ``dtype``: as a world of one's product
+    accumulates in f32 and rounds once, but for the order of the f32
+    additions.  Its cotangent is summed over ``tp`` too
+    (``collectives.psum``)."""
+    return coll.psum(part, mesh, env.tp, "tp").to(dtype)
+
+
+def swiglu_tp(x: torch.Tensor, w_gate, w_up, w_down, compute_dtype, mesh,
+              env) -> torch.Tensor:
+    """``swiglu`` on this rank's blocks over a model mesh, the body of the
+    train cell's sharded dense FFN: ``x`` (B_l, S, d) this rank's rows,
+    ``w_gate`` / ``w_up`` (d / fsdp, d_ff / tp), ``w_down`` (d_ff / tp,
+    d / fsdp).  The ``fsdp`` dims are gathered in the compute dtype (the
+    backward, a reduce-scatter, returns each block's gradient to its
+    rank), the rank computes its chunk of d_ff, and the partial products
+    of ``w_down`` are summed over ``tp`` (``row_parallel_sum``, the
+    partials in f32)."""
+    fs, cdt = env.fsdp, compute_dtype
+    h = _swiglu_hidden(x, coll.gather(w_gate.to(cdt), mesh, fs, 0, "fsdp"),
+                       coll.gather(w_up.to(cdt), mesh, fs, 0, "fsdp"), cdt)
+    w_down = coll.gather(w_down.to(cdt), mesh, fs, 1, "fsdp")
+    part = torch.einsum("...f,fd->...d", h.float(), w_down.float())
+    return row_parallel_sum(part, mesh, env, cdt)
+
+
+def whole_leaves(module: nn.Module, defs: dict, mesh, compute_dtype) -> dict:
+    """The leaves of ``module`` that ``defs`` names, each whole in the
+    compute dtype: gathered from every rank's block (its ``param_specs``
+    spec on ``mesh``; a gather is exact).  A call with a state (a prefill,
+    a decode step) computes on these, as a world of one does.  Each is
+    kept on the module until its block changes (another tensor, or an
+    in-place update), so the decode steps of a model gather once: the
+    gathers go through the host on the card."""
+    env = AxisEnv.from_mesh(mesh)
+    kept = module.__dict__.setdefault("_whole", {})
+    out = {}
+    for name, d in defs.items():
+        p = getattr(module, name)
+        key = (p._version, p.data_ptr(), p.device)
+        hit = kept.get(name)
+        if hit is None or hit[0] is not p or hit[1] != key:
+            with torch.no_grad():
+                w = unshard_leaf(mesh, p.detach().to(compute_dtype),
+                                 env.resolve(d.logical), "whole")
+            hit = kept[name] = (p, key, w)
+        out[name] = hit[2]
+    return out
 
 
 def dense_ffn_defs(d_model: int, d_ff: int) -> ParamTree:
@@ -191,7 +253,10 @@ class RMSNorm(nn.Module):
 
 class DenseFFN(nn.Module):
     """SwiGLU over ``w_gate``, ``w_up``, ``w_down`` (the reference's
-    ``ffn`` subtree), each cast to ``compute_dtype`` at use."""
+    ``ffn`` subtree), each cast to ``compute_dtype`` at use.  Over a model
+    mesh the leaves hold this rank's ``param_specs`` blocks: ``forward``
+    with the ``mesh`` gathers them whole (a call with a state), and
+    ``forward_tp`` runs this rank's block (``swiglu_tp``)."""
 
     def __init__(self, weights: dict, compute_dtype: torch.dtype):
         super().__init__()
@@ -199,6 +264,15 @@ class DenseFFN(nn.Module):
             setattr(self, name, nn.Parameter(weights[name]))
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
-        return swiglu(x, self.w_gate, self.w_up, self.w_down,
+    def forward(self, x, mesh=None):
+        # the defs give the leaves' logical dims (their sizes unused)
+        w = (whole_leaves(self, dense_ffn_defs(1, 1), mesh,
+                          self.compute_dtype) if mesh is not None
+             else {"w_gate": self.w_gate, "w_up": self.w_up,
+                   "w_down": self.w_down})
+        return swiglu(x, w["w_gate"], w["w_up"], w["w_down"],
                       self.compute_dtype)
+
+    def forward_tp(self, x, mesh, env):
+        return swiglu_tp(x, self.w_gate, self.w_up, self.w_down,
+                         self.compute_dtype, mesh, env)

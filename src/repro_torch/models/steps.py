@@ -15,7 +15,6 @@ from torch.func import functional_call
 
 from repro_torch.common.config import ModelConfig, TrainConfig
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.mesh import AxisEnv
 from repro_torch.models import transformer
 from repro_torch.models.layers import tree_leaves
 from repro_torch.optim import adamw
@@ -63,33 +62,30 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, use_ep=False,
     under token ids, ``memory_proj`` without a memory) gets a zero
     gradient, as ``jax.grad`` gives it.
 
-    Over a ``mesh`` of more than one rank every rank runs the step on the
-    whole batch (with ``use_ep`` its MoE leaves hold its blocks,
-    ``transformer.local_specs``; without, the model is whole on every
-    rank).  So the gradient of a whole leaf is already the whole batch's,
-    the same on every rank, and nothing reduces it (the reference's pjit
-    splits the batch and sums them); a block keeps its own gradient; the
-    global norm sums each block's squares over the axes it is sharded
-    on.  ``grad_compression``
-    ``int8`` needs a leaf's absmax over all its blocks and is refused for
-    sharded leaves.
+    Over a ``mesh`` of more than one rank each rank holds the blocks of
+    ``transformer.local_specs`` (the dense GQA leaves by their
+    ``param_specs``; with ``use_ep`` the experts) and every rank makes the
+    same calls on the same whole batch.  The dense blocks run on this
+    rank's rows of the batch (``Transformer.forward``): the backward of
+    their weight gathers reduce-scatters each block's gradient over the
+    rows of every rank, and the norms, whole on every rank, sum theirs.
+    So every rank's gradient of a whole leaf is the whole batch's, and a
+    block's is its share of the whole gradient, as the reference's pjit
+    step (its train cell) gives them.  The global norm sums each block's
+    squares over the axes it is sharded on and counts a whole leaf once;
+    ``grad_compression`` ``int8`` takes a sharded leaf's absmax over its
+    blocks (a max over those axes).
     """
     lr_fn = adamw.cosine_schedule(tcfg)
     leaves = transformer.reference_leaves(cfg)
     order = [n for _, _, names in leaves for n in names]
     bf16 = {n for _, d, names in leaves for n in names
             if tcfg.grads_dtype == "bfloat16" and len(d.shape) >= 2}
-    world = mesh is not None and mesh.size > 1
     sharded = {}                 # name -> axes its block is sharded over
-    if world and use_ep:
-        specs = dict(tree_leaves(transformer.local_specs(
-            cfg, AxisEnv.from_mesh(mesh))))
+    if mesh is not None and mesh.size > 1:
+        specs = dict(tree_leaves(transformer.mesh_specs(cfg, mesh)))
         sharded = {n: specs[path].all_axes() for path, _, names in leaves
                    for n in names if specs[path].all_axes()}
-        if sharded and tcfg.grad_compression == "int8":
-            raise ValueError("grad_compression int8 takes each leaf's absmax;"
-                             " over expert blocks that needs a max across "
-                             "ranks, which the model mesh does not do")
     fwd_kw = {"use_ep": use_ep, "mesh": mesh, "sp_constraint": sp_constraint}
 
     def train_step(model, opt_state, batch):
@@ -126,7 +122,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, use_ep=False,
                 g.div_(nmb)
         if tcfg.grad_compression != "none":
             for _, _, names in leaves:          # a reference leaf at a time
-                _compress(grads, names, tcfg.grad_compression)
+                _compress(grads, names, tcfg.grad_compression, mesh,
+                          sharded.get(names[0], ()))
         norm = _global_norm(grads, sharded, mesh) if sharded else None
         _, opt_state, opt_metrics = adamw.adamw_update(
             params, grads, opt_state, tcfg, lr_fn, norm=norm)
@@ -150,13 +147,22 @@ def _global_norm(grads: dict, sharded: dict, mesh) -> torch.Tensor:
         return torch.sqrt(total)
 
 
-def _compress(grads: dict, names: list, mode: str) -> None:
+def _compress(grads: dict, names: list, mode: str, mesh=None,
+              axes: tuple = ()) -> None:
     """Quantize and dequantize, in ``grads``, the gradients of one
-    reference leaf: a scanned leaf's layers are stacked, so that int8's
-    absmax scale is the whole leaf's, as in the reference."""
+    reference leaf: a scanned leaf's layers are stacked, and a leaf
+    sharded over ``axes`` takes the max of its blocks' absmax over them,
+    so that int8's absmax scale is the whole leaf's, as in the
+    reference."""
     whole = grads[names[0]] if len(names) == 1 else torch.stack(
         [grads[n] for n in names])
-    payload, deq = adamw.compress_grads({"g": whole}, mode)
+    absmax = None
+    if mode == "int8" and axes:
+        with torch.no_grad():
+            absmax = {"g": coll.axis_all_reduce(
+                torch.max(torch.abs(whole.float())), mesh, axes, "absmax",
+                op="max")}
+    payload, deq = adamw.compress_grads({"g": whole}, mode, absmax)
     back = deq(payload)["g"]
     for i, n in enumerate(names):
         grads[n] = back if len(names) == 1 else back[i]

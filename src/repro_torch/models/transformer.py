@@ -32,15 +32,17 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.common.config import BlockKind, FFNKind, ModelConfig
-from repro_torch.distributed.mesh import (AxisEnv, Spec, block_shape,
-                                          block_slices)
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.mesh import (AxisEnv, Spec, axis_size,
+                                          block_shape, block_slices,
+                                          shard_leaf)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     DenseFFN, ParamDef, ParamTree, RMSNorm, abstract_tree, count_tree,
-    dense_ffn_defs, embedding_defs, init_tree, softcap, spec_tree,
-    stack_defs, tree_leaves, tree_map,
+    dense_ffn_defs, embedding_defs, init_tree, rms_norm, softcap, spec_tree,
+    stack_defs, tree_leaves, tree_map, whole_leaves,
 )
 
 # the SSM kinds: (parameter defs, state defs, mixer module)
@@ -106,7 +108,18 @@ class Block(nn.Module):
     ``ffn.router``, ...).  The forward returns (x, new_state, aux), aux the
     MoE FFN's loss (None for any other block: the reference's zero), as
     the reference's ``block_forward``.  An SSM block's state is replaced
-    each call, not written in place; a cross block's is passed through."""
+    each call, not written in place; a cross block's is passed through.
+
+    Over a model mesh of more than one rank a GQA attention's and a dense
+    FFN's leaves hold their ``param_specs`` blocks (``local_specs``).
+    Without a state each runs as the train cell's ``shard_map`` runs it,
+    written by hand: ``x`` (B, S, d) is whole on every rank between
+    blocks; the block takes this rank's rows of the batch (``_Rows``),
+    runs the norm, the attention's heads or the FFN's chunk of d_ff
+    (``forward_tp``) and the residual on them, and gathers them back
+    whole; the norm weights, whole on every rank, sum their cotangents
+    over every axis (``collectives.pvary``).  A call with a state gathers
+    those leaves whole and computes as a world of one."""
 
     def __init__(self, cfg: ModelConfig, kind: str, ffn: str, weights: dict,
                  compute_dtype: torch.dtype):
@@ -136,24 +149,83 @@ class Block(nn.Module):
         (B, 1, d) when None, as in the reference.  With ``use_ep`` and a
         model ``mesh`` an MoE FFN runs ``moe_block_sharded`` (the
         reference's EP branch)."""
-        h = self.ln1(x)
+        sharded = mesh is not None and mesh.size > 1
+        tp_attn = self.kind == BlockKind.ATTN.value
+        tp_ffn = isinstance(self.ffn, DenseFFN)
+        rows = (_Rows(x.shape[0], mesh, env)
+                if sharded and state is None and (tp_attn or tp_ffn)
+                else None)
+        xs = None                   # this rank's rows, while a block runs
         new_state = state
-        if self.kind == BlockKind.CROSS_ATTN.value:
-            if memory is None:
-                memory = x.new_zeros((x.shape[0], 1, x.shape[-1]))
-            h = self.attn(h, memory)
-        elif self.kind in _SSM:
-            h, new_state = self.mixer(h, state, valid)
+        if rows is not None and tp_attn:
+            xs = rows.take(x)
+            h = rms_norm(xs, rows.replicated(self.ln1.weight), self.ln1.eps)
+            xs = xs + self.attn.forward_tp(h, rows.index(positions), mesh,
+                                           env, rows.index(valid_from))
         else:
-            h, new_state = self.attn(h, positions, state, valid_from)
-        x = x + h
+            h = self.ln1(x)
+            if self.kind == BlockKind.CROSS_ATTN.value:
+                if memory is None:
+                    memory = x.new_zeros((x.shape[0], 1, x.shape[-1]))
+                h = self.attn(h, memory)
+            elif self.kind in _SSM:
+                h, new_state = self.mixer(h, state, valid)
+            else:
+                whole = {"mesh": mesh} if sharded and tp_attn else {}
+                h, new_state = self.attn(h, positions, state, valid_from,
+                                         **whole)
+            x = x + h
         aux = None
         if isinstance(self.ffn, moe_lib.MoEFFN):
+            if xs is not None:
+                x, xs = rows.gather(xs), None
             h, aux = self.ffn(self.ln2(x), use_ep, mesh, env)
             x = x + h
+        elif rows is not None:
+            if xs is None:
+                xs = rows.take(x)
+            h = rms_norm(xs, rows.replicated(self.ln2.weight), self.ln2.eps)
+            xs = xs + self.ffn.forward_tp(h, mesh, env)
         elif self.ffn is not None:
-            x = x + self.ffn(self.ln2(x))
+            x = x + self.ffn(self.ln2(x), mesh if sharded else None)
+        if xs is not None:
+            x = rows.gather(xs)
         return x, new_state, aux
+
+
+class _Rows:
+    """This rank's rows of the batch on a model mesh, as a ``shard_map``
+    takes its input and returns its output: the batch over ``env.batch``
+    where it divides (else every row on every rank).  ``take`` slices an
+    activation (``collectives.shard_in``), ``gather`` assembles one whole
+    (``gather_out``), ``index`` slices a tensor of positions or ids (no
+    gradient), and ``replicated`` passes a weight whole on every rank
+    (``pvary`` over every axis)."""
+
+    LABELS = ("batch", None, None, "replicas")
+
+    def __init__(self, b: int, mesh, env):
+        ways = axis_size(mesh, env.batch)
+        self.entry = (env.resolve(("batch",))[0]
+                      if b % ways == 0 and b >= ways else None)
+        self.mesh = mesh
+
+    def spec(self, ndim: int, *rest) -> Spec:
+        return Spec(self.entry, *rest, *([None] * (ndim - 1 - len(rest))))
+
+    def take(self, x):
+        return coll.shard_in(x, self.mesh, self.spec(x.ndim), self.LABELS)
+
+    def gather(self, xs):
+        return coll.gather_out(xs, self.mesh, self.spec(xs.ndim),
+                               self.LABELS)
+
+    def index(self, t):
+        return None if t is None else shard_leaf(self.mesh, t,
+                                                 self.spec(t.ndim))
+
+    def replicated(self, w):
+        return coll.pvary(w, self.mesh, self.mesh.axis_names, "replicas")
 
 
 # ---------------------------------------------------------------------------
@@ -267,23 +339,56 @@ def abstract_params(cfg: ModelConfig) -> ParamTree:
 
 
 def local_specs(cfg: ModelConfig, env: AxisEnv) -> ParamTree:
-    """The port's layout of the parameters over a model mesh: the leaves
-    of each MoE ``ffn`` subtree as ``moe_block_sharded`` takes them
-    (``moe.moe_param_specs``: experts over ``model`` and ``fsdp``, shared
-    experts over ``fsdp``, a scanned leaf with its leading axis whole),
-    every other leaf whole (``Spec`` of ``None``)."""
-    specs = tree_map(lambda d: Spec(*([None] * len(d.shape))),
-                     model_defs(cfg))
-    if cfg.moe is None:
-        return specs
-    moe_spec = moe_lib.moe_param_specs(env, cfg.moe.num_shared_experts > 0)
-    for seg in ("prefix", "scanned"):
-        for blk in specs.get(seg, {}).values():
-            if "router" not in blk.get("ffn", {}):
-                continue
-            lead = (None,) if seg == "scanned" else ()
-            blk["ffn"] = tree_map(lambda sp: Spec(*lead, *sp), moe_spec)
+    """The port's layout of the parameters over a model mesh.  The dense
+    GQA leaves take their ``param_specs`` spec, as the reference's train
+    cell places them: a GQA block's ``attn`` (``wq`` / ``wk`` / ``wv``
+    ``(fsdp, tp, None)``, ``wo`` ``(tp, None, fsdp)``), a dense ``ffn``
+    (``w_gate`` / ``w_up`` ``(fsdp, tp)``, ``w_down`` ``(tp, fsdp)``), the
+    embedding ``(tp, fsdp)`` and the unembedding ``(fsdp, tp)``.  The
+    leaves of each MoE ``ffn`` subtree are as ``moe_block_sharded`` takes
+    them (``moe.moe_param_specs``: experts over ``model`` and ``fsdp``,
+    shared experts over ``fsdp``).  A scanned leaf keeps its leading axis
+    whole.  Every other leaf is whole (``Spec`` of ``None``): the norms,
+    MLA, cross-attention, the SSM mixers, the frontend and memory
+    projections."""
+    defs, segs = model_defs(cfg), plan_segments(cfg)
+    specs = tree_map(lambda d: Spec(*([None] * len(d.shape))), defs)
+
+    def param(d):
+        return env.resolve(d.logical)
+
+    gqa = BlockKind.ATTN.value
+    specs["embed"] = tree_map(param, defs["embed"])
+    if "unembed" in defs:
+        specs["unembed"] = param(defs["unembed"])
+    moe_spec = (moe_lib.moe_param_specs(env, cfg.moe.num_shared_experts > 0)
+                if cfg.moe is not None else None)
+    for seg, kinds in (("prefix", segs.prefix), ("scanned", segs.period)):
+        for i, (kind, _) in enumerate(kinds):
+            blk, out = defs[seg][str(i)], specs[seg][str(i)]
+            if kind == gqa:
+                out["attn"] = tree_map(param, blk["attn"])
+            if "router" in blk.get("ffn", {}):
+                lead = (None,) if seg == "scanned" else ()
+                out["ffn"] = tree_map(lambda sp: Spec(*lead, *sp), moe_spec)
+            elif "ffn" in blk:
+                out["ffn"] = tree_map(param, blk["ffn"])
     return specs
+
+
+def mesh_specs(cfg: ModelConfig, mesh) -> ParamTree:
+    """``local_specs`` on ``mesh``.  A config with GQA blocks whose query
+    or KV heads the ``tp`` axes do not divide raises ``ValueError``: it
+    needs its heads padded (``tp_pad_config``, not ported)."""
+    env = AxisEnv.from_mesh(mesh)
+    if any(k == BlockKind.ATTN.value for k, _ in plan_segments(cfg).layers):
+        tp = axis_size(mesh, env.tp)
+        if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+            raise ValueError(
+                f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} "
+                f"KV heads do not split over tp {tp}; pad them with "
+                f"tp_pad_config (not ported yet)")
+    return local_specs(cfg, env)
 
 
 def _port_name(prefix: str, leaf: tuple) -> str:
@@ -323,11 +428,11 @@ def weights_from_tree(cfg: ModelConfig, tree: dict, mesh=None) -> dict:
     axis, ``unembed`` when untied).  Scanned leaves are unstacked into
     views, one a layer.  A missing or surplus leaf, or a leaf whose shape
     is not the config's, raises ``ValueError``.  With a model ``mesh`` the
-    tree holds this rank's blocks (``local_specs``) and their shapes are
+    tree holds this rank's blocks (``mesh_specs``) and their shapes are
     checked."""
     defs = dict(tree_leaves(model_defs(cfg)))
     if mesh is not None:
-        specs = dict(tree_leaves(local_specs(cfg, AxisEnv.from_mesh(mesh))))
+        specs = dict(tree_leaves(mesh_specs(cfg, mesh)))
         defs = {p: dataclasses.replace(d, shape=block_shape(
             mesh, d.shape, specs[p])) for p, d in defs.items()}
     got = dict(tree_leaves(tree))
@@ -477,19 +582,39 @@ class Transformer(nn.Module):
         (projected once by ``memory_proj``; (B, M, d) without one) for the
         cross layers, which attend to zeros without it.  With
         ``cfg.remat``, when gradients are taken and there is no state, each
-        block is checkpointed (``_remat``).  ``use_ep`` and ``mesh`` (a
-        model mesh, ``distributed.mesh.make_mesh``) run the MoE FFNs
-        expert-parallel (``moe.moe_block_sharded``: the model's MoE
-        leaves hold this rank's blocks, ``init_params(mesh=)``); every
-        other leaf is whole on every rank, which computes the rest of the
-        model on the whole batch.  ``sp_constraint``, when given, is
-        applied to the activations after the embedding and after each
-        block, where the reference constrains their sharding."""
+        block is checkpointed (``_remat``).  ``mesh`` is a model mesh
+        (``distributed.mesh.make_mesh``) whose ranks hold the blocks of
+        ``local_specs`` (``init_params(mesh=)``).  Over more than one rank
+        and without a state the dense GQA blocks run tensor-parallel on
+        this rank's rows of the batch (``Block``); the embedding looks up
+        the ids of this rank's rows in its vocabulary block (the ``fsdp``
+        dim gathered; an id outside it gives zeros) and sums the rows over
+        ``tp``; the logits are this rank's vocabulary columns of its rows,
+        gathered whole before ``softcap`` (a tied table is gathered once
+        for both uses, so both gradients reach its block).  With a state
+        those leaves are gathered whole and the call computes as a world
+        of one.  The other leaves are whole on every rank, which runs
+        them on the whole batch.  ``use_ep`` runs the MoE FFNs
+        expert-parallel over the mesh (``moe.moe_block_sharded``).
+        ``sp_constraint``, when given, is applied to the activations after
+        the embedding and after each block, where the reference
+        constrains their sharding."""
         cdt = self.compute_dtype
+        env = AxisEnv.from_mesh(mesh) if mesh is not None else None
+        sharded = mesh is not None and mesh.size > 1
+        split = sharded and state is None
+        whole = sharded and not split       # a state: the leaves gathered
+        defs = model_defs(self.cfg) if whole else None
         emb = self.embed["embedding"]
+        if whole:
+            emb = whole_leaves(self.embed, defs["embed"], mesh,
+                               cdt)["embedding"]
+        table = None          # this rank's vocabulary block, d gathered
         if tokens.ndim == 3:
             x = torch.einsum("bsf,fd->bsd", tokens.to(cdt),
                              self.frontend_proj.to(cdt))
+        elif split:
+            x, table = _embed_tp(tokens, emb, cdt, mesh, env)
         else:
             x = nn.functional.embedding(tokens, emb).to(cdt)
         if memory is not None and self.memory_proj is not None:
@@ -504,7 +629,6 @@ class Transformer(nn.Module):
                      >= valid_from[:, None])
         if sp_constraint is not None:
             x = sp_constraint(x)
-        env = AxisEnv.from_mesh(mesh) if mesh is not None else None
         remat = self.cfg.remat and state is None and torch.is_grad_enabled()
         new_state = [] if state is not None else None
         auxes = []
@@ -524,12 +648,38 @@ class Transformer(nn.Module):
                 new_state.append(st)
         x = self.ln_f(x)
         # the logits in the compute dtype, then f32 (as the reference)
-        if self.unembed is None:
+        if split:
+            logits = self._logits_tp(x, table, mesh, env)
+        elif self.unembed is None:
             logits = torch.matmul(x, emb.to(cdt).T)
         else:
-            logits = torch.matmul(x, self.unembed.to(cdt))
+            unembed = (whole_leaves(self, {"unembed": defs["unembed"]}, mesh,
+                                    cdt)["unembed"] if whole
+                       else self.unembed)
+            logits = torch.matmul(x, unembed.to(cdt))
         logits = softcap(logits.float(), self.cfg.logits_softcap)
         return logits, new_state, self._aux_total(auxes, x.device)
+
+    def _logits_tp(self, x, table, mesh, env):
+        """The whole (B, S, V) logits in the compute dtype from this
+        rank's rows of ``x`` and its vocabulary columns: the unembedding's
+        ``(fsdp, tp)`` block with d gathered, or, tied, the embedding's
+        gathered block ``table`` (gathered here when the forward took
+        frontend embeds)."""
+        cdt = self.compute_dtype
+        rows = _Rows(x.shape[0], mesh, env)
+        xs = rows.take(x)
+        if self.unembed is None:
+            if table is None:
+                table = coll.gather(self.embed["embedding"].to(cdt), mesh,
+                                    env.fsdp, 1, "fsdp")
+            part = torch.matmul(xs, table.T)
+        else:
+            part = torch.matmul(xs, coll.gather(self.unembed.to(cdt), mesh,
+                                                env.fsdp, 0, "fsdp"))
+        return coll.gather_out(part, mesh,
+                               rows.spec(3, None, env.resolve(("tp",))[0]),
+                               ("batch", None, "tp", "replicas"))
 
     def _aux_total(self, auxes: list, device) -> torch.Tensor:
         """The prefix layers' aux added in order, then the sum over the
@@ -547,6 +697,24 @@ class Transformer(nn.Module):
         if any(a is not None for a in periods):
             total = total + torch.sum(torch.stack(periods))
         return total
+
+
+def _embed_tp(tokens, emb, cdt, mesh, env):
+    """(x whole (B, S, d), the gathered table): the embedding of the ids
+    from this rank's ``(tp, fsdp)`` block of the table, its ``fsdp`` dim
+    gathered in the compute dtype; this rank's rows of the batch look up
+    the ids in its vocabulary block, an id outside it giving zeros, and
+    the rows are summed over ``tp`` (one nonzero term: exact) and
+    gathered whole."""
+    table = coll.gather(emb.to(cdt), mesh, env.fsdp, 1, "fsdp")
+    n = table.shape[0]
+    rows = _Rows(tokens.shape[0], mesh, env)
+    ids = rows.index(tokens) - mesh.axis_index(env.tp) * n
+    mine = (ids >= 0) & (ids < n)
+    xs = nn.functional.embedding(torch.where(mine, ids, 0), table)
+    xs = torch.where(mine[..., None], xs, torch.zeros((), dtype=xs.dtype,
+                                                      device=xs.device))
+    return rows.gather(coll.psum(xs, mesh, env.tp, "tp")), table
 
 
 def _sum(auxes: list):
@@ -591,12 +759,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     values an f32 draw cast to bf16 would have.  On a model ``mesh`` each
     rank draws every leaf whole (the generator's sequence is the world-1
     one) and keeps its block (``local_specs``): the same weights as a
-    world of one, each rank holding its share of the experts.  The peak is
-    the kept blocks plus one whole leaf in f32."""
+    world of one, each rank holding its share of the dense GQA leaves and
+    of the experts.  The peak is the kept blocks plus one whole leaf in
+    f32."""
     defs = model_defs(cfg)
     blocks = None
     if mesh is not None:
-        specs = local_specs(cfg, AxisEnv.from_mesh(mesh))
+        specs = mesh_specs(cfg, mesh)
         blocks = _zip_map(lambda d, sp: block_slices(mesh, d.shape, sp),
                           defs, specs)
     return Transformer(cfg, weights_from_tree(

@@ -94,17 +94,21 @@ def clip_by_global_norm(grads: dict, max_norm: float):
     return {n: g.float() * scale for n, g in grads.items()}, norm
 
 
-def compress_grads(grads: dict, mode: str):
+def compress_grads(grads: dict, mode: str, absmax: dict = None):
     """Quantize gradients for a cross-shard reduction.  Returns (payload,
-    deq).  fp16: a cast; int8: per-leaf absmax symmetric quantization;
-    'none' is the identity."""
+    deq).  fp16: a cast; int8: per-leaf absmax symmetric quantization
+    (``absmax``, where given, a leaf's max |g| over all its blocks, for a
+    leaf of which ``grads`` holds one block); 'none' is the identity."""
     if mode == "none":
         return grads, lambda x: x
     if mode == "fp16":
         return ({n: g.to(torch.float16) for n, g in grads.items()},
                 lambda t: {n: g.to(torch.float32) for n, g in t.items()})
     if mode == "int8":
-        scales = {n: torch.clamp(torch.max(torch.abs(g.float())), min=1e-12) / 127.0
+        absmax = absmax or {}
+        scales = {n: torch.clamp(absmax[n] if n in absmax
+                                 else torch.max(torch.abs(g.float())),
+                                 min=1e-12) / 127.0
                   for n, g in grads.items()}
         q = {n: torch.clamp(torch.round(g.float() / scales[n]), -127, 127
                             ).to(torch.int8) for n, g in grads.items()}

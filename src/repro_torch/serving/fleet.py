@@ -110,15 +110,17 @@ class BandScheduler:
         self._cond = threading.Condition()
         self._next_ticket = 0
         self._serving = 0
-        self._last_owner: Optional[int] = None
+        self._last_owner: Optional[threading.Thread] = None
         self.band_steps = 0
         self.interleaves = 0
 
     def _grant(self) -> None:
-        """Count one grant (caller holds ``_cond``)."""
-        owner = threading.get_ident()
+        """Count one grant (caller holds ``_cond``).  The owner is the
+        thread object, kept alive by ``_last_owner``: an ident is reused
+        by a thread started after the previous owner ended."""
+        owner = threading.current_thread()
         self.band_steps += 1
-        if self._last_owner is not None and owner != self._last_owner:
+        if self._last_owner is not None and owner is not self._last_owner:
             self.interleaves += 1
         self._last_owner = owner
 

@@ -119,12 +119,33 @@ def test_abstract_params_and_state_shapes_and_dtypes(arch):
                                         True)
 
 
-def test_local_specs_shard_only_moe_leaves():
-    """The port's layout over a mesh: each MoE ``ffn`` leaf by
-    ``moe_block_sharded``'s spec (a scanned leaf with a whole leading
-    axis), every other leaf whole."""
+def test_local_specs_shard_dense_gqa_and_moe_leaves():
+    """The port's layout over a mesh: the dense GQA leaves by their
+    ``param_specs`` spec (attention ``wq`` / ``wk`` / ``wv`` ``(fsdp, tp,
+    None)``, ``wo`` ``(tp, None, fsdp)``; dense FFN ``w_gate`` / ``w_up``
+    ``(fsdp, tp)``, ``w_down`` ``(tp, fsdp)``; embedding ``(tp, fsdp)``;
+    unembedding ``(fsdp, tp)``), each MoE ``ffn`` leaf by
+    ``moe_block_sharded``'s spec, a scanned leaf with a whole leading
+    axis; the norms, MLA's leaves and the router whole."""
     _, port = _meshes("single")
     env = AxisEnv.from_mesh(port)
+    dense = dict(tree_leaves(tr.local_specs(get_config("phi4-mini-3.8b"),
+                                            env)))
+    want = {("attn", "wq"): (None, "data", "model", None),
+            ("attn", "wk"): (None, "data", "model", None),
+            ("attn", "wv"): (None, "data", "model", None),
+            ("attn", "wo"): (None, "model", None, "data"),
+            ("ffn", "w_gate"): (None, "data", "model"),
+            ("ffn", "w_up"): (None, "data", "model"),
+            ("ffn", "w_down"): (None, "model", "data")}
+    for (blk, leaf), spec in want.items():
+        assert dense[("scanned", "0", blk, leaf)] == spec
+    assert dense[("embed", "embedding")] == ("model", "data")
+    assert dense[("scanned", "0", "ln1")] == (None, None)
+    assert dense[("ln_f",)] == (None,)
+    param = dict(tree_leaves(tr.param_specs(get_config("phi4-mini-3.8b"),
+                                            env)))
+    assert dense == param
     specs = dict(tree_leaves(tr.local_specs(get_config("deepseek-v2-236b"),
                                             env)))
     sharded = {p: s for p, s in specs.items() if any(s)}
@@ -134,11 +155,12 @@ def test_local_specs_shard_only_moe_leaves():
         None, "model", None, "data")
     assert sharded[("scanned", "0", "ffn", "shared", "w_up")] == (
         None, "data", None)
-    assert all(p[2] == "ffn" and p[3] != "router" for p in sharded)
-    assert len(sharded) == 6
-    dense = dict(tree_leaves(tr.local_specs(get_config("phi4-mini-3.8b"),
-                                            env)))
-    assert not any(any(s) for s in dense.values())
+    # the first layer's dense FFN, the embedding and the unembedding
+    assert sharded[("prefix", "0", "ffn", "w_down")] == ("model", "data")
+    assert sharded[("embed", "embedding")] == ("model", "data")
+    assert sharded[("unembed",)] == ("data", "model")
+    assert not any("attn" in p or p[-1] == "router" for p in sharded)
+    assert len(sharded) == 6 + 3 + 2
 
 
 def test_production_mesh_needs_its_world():
