@@ -3,12 +3,13 @@ sub-phases of phase 11 alone, on the card:
 
     python3 chip_phases.py a d            # (a) EP MoE smoke, (d) dense TP
     python3 chip_phases.py d --layers 2,4 # (d) at each depth in turn
+    python3 chip_phases.py e              # (e) MLA, cross, SSM leaves
 
-(a) is ``Smoke._ep_smoke``, (d) ``Smoke._dense_tp`` (at
-``DENSE_TP_LAYERS``, or at each depth of ``--layers``, where a failed gate
-is printed and the next depth run).  Each sub-phase prints its line as
-``chip_smoke.py`` does, then its wall; the last line is the card's name
-and power limit."""
+(a) is ``Smoke._ep_smoke``; (d) and (e) are ``Smoke._tp_world`` with that
+letter alone, (d) at ``DENSE_TP_LAYERS`` or at each depth of ``--layers``
+(where a failed gate is printed and the next depth run).  Each
+sub-phase prints its line as ``chip_smoke.py`` does, then its wall; the
+last line is the card's name and power limit."""
 
 import argparse
 import os
@@ -24,7 +25,7 @@ import chip_smoke  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sub", nargs="+", choices=("a", "d"))
+    ap.add_argument("sub", nargs="+", choices=("a", "d", "e"))
     ap.add_argument("--layers", default=None,
                     help="comma-separated depths for (d)")
     args = ap.parse_args()
@@ -44,7 +45,10 @@ def main():
                 chip_smoke.DENSE_TP_LAYERS = layers
             t = time.perf_counter()
             try:
-                (ctx._dense_tp if sub == "d" else ctx._ep_smoke)()
+                if sub == "a":
+                    ctx._ep_smoke()
+                else:
+                    ctx._tp_world(sub)
             except SystemExit as e:
                 if layers is None:
                     raise

@@ -155,13 +155,13 @@ Phases, in order; any failure exits non-zero before the last line:
      prefill of 69 tokens and the 70th decoded within 1e-4 of max |logit|,
      a ``ServeEngine`` wave's greedy tokens equal; (b) ``launch.serve
      --full`` for zamba2-1.2b and xlstm-350m: 192 tokens each; (c)
-     zamba2-1.2b (38 layers, 1 352 519 680 parameters) and xlstm-350m (24,
-     405 345 376) whole, llama-3.2-vision-90b at full width cut to 20 of
+     zamba2-1.2b (38 layers, 1 352 519 680 parameters) whole, xlstm-350m
+     cut to 12 of 24 layers (254 184 496), llama-3.2-vision-90b cut to 20 of
      100 layers (19 235 414 020; a memory (8, 1600, 1280), prefill with it
      must differ from prefill without), bf16: init s and peak, the
      launcher's 16 requests in process, prefill ms a wave and of 8 x 256
      tokens, decode ms a step (events), device ms and busy share against
-     the bytes bound; (d) zamba2 prefill 1 x 2048 tokens (8 chunks)
+     the bytes bound; (d) zamba2 prefill 1 x 1024 tokens (4 chunks)
      and xlstm 1 x 512, and decode one, in float32 compute and bf16: the
      first layer's state within 1e-4 of a prefill of all n + 1 (f32); the
      decode against that prefill and against a full forward recorded
@@ -189,8 +189,9 @@ Phases, in order; any failure exits non-zero before the last line:
      bf16 peak, the optimizer alone against its bytes bound (p, g, m, v
      read, p, m, v written: 28 B a parameter), the card's busy share of a
      step (profiler, one step) beside the host's time to enqueue one, and
-     peak memory against the 61.38 GB of state; then zamba2-1.2b and
-     xlstm-350m at full size the same way (state 21.64 and 6.49 GB);
+     peak memory against the 61.38 GB of state; then zamba2-1.2b whole
+     and xlstm-350m at 12 of its 24 layers the same way (state 21.64 and
+     4.07 GB);
  11. the model mesh and the expert-parallel MoE, over worlds of ranks
      sharing the card through gloo (``launch/ep_world.py``), none of
      which may launch a join kernel: (a) the two MoE smoke configs in
@@ -211,8 +212,16 @@ Phases, in order; any failure exits non-zero before the last line:
      split over ``batch``): phi4-mini's train step over (1, 2) and (2, 1)
      in one world of two ranks (``_dense_tp_rank``), its smoke config
      card against CPU in float32, and at full width (``DENSE_TP_LAYERS``
-     layers, bf16 compute, f32 masters) two steps against world 1: step
-     ms a rank, peak memory, collectives by axis and route;
+     layers, bf16 compute, f32 masters) two steps against world 1 (the
+     logits and the taught layers against world 1 run on the mesh's
+     groups of rows, where it splits them): step ms a rank, peak memory,
+     collectives by axis and route; (e) the other
+     leaf kinds as their ``param_specs`` blocks (MLA, cross-attention,
+     Mamba2, mLSTM, sLSTM, the frontend and memory projections): the
+     smoke configs of ``LEAVES_SMOKE`` card against CPU as (d)'s, and
+     the models of ``LEAVES_FULL`` cut in depth against world 1 as
+     (d)'s full width (``_leaves_tp_rank``), one layer of each new kind
+     taught;
  12. the reference's invariants over the port, each sub-phase's wall and
      launches printed (counts set to 0 just before it, read just after):
      (a) ``python -m repro_torch.analysis --check`` exits 0 on the port's
@@ -295,21 +304,55 @@ ZOO_MOE = ("llama4-maverick-400b-a17b", "deepseek-v2-236b")
 ZOO_MOE_FULL = (("deepseek-v2-236b", 4, 13_302_912_000),
                 ("llama4-maverick-400b-a17b", 2, 18_553_267_200))
 # phase 9's SSM and cross-attention configs, smoke size card against CPU,
-# and at full width: (arch, layers, parameters); llama-vision cut to 20 of
-# its 100 layers (4 periods, so 4 cross layers) to fit one card
+# and at full width (phases 9 and 10 (c)): (arch, layers, parameters);
+# llama-vision cut to 20 of its 100 layers (4 periods, so 4 cross layers)
+# to fit one card; xlstm to 12 of its 24 for time (6 mLSTM + 6 sLSTM: its
+# sLSTM is a Python loop over time, and 24 layers took 84 s of phase 10
+# (c) and 35 s of phase 9).  Not fewer: a scanned leaf's fan_in is its
+# period count, so fewer periods draw larger weights, and the card's draw
+# at 6 and at 8 layers gives NaN gradients (the reference gives NaN on
+# the port's CPU draw at 6 too; ROADMAP queue 3)
 ZOO_SSM = ("zamba2-1.2b", "xlstm-350m", "llama-3.2-vision-90b")
 ZOO_SSM_FULL = (("zamba2-1.2b", 38, 1_352_519_680),
-                ("xlstm-350m", 24, 405_345_376),
+                ("xlstm-350m", 12, 254_184_496),
                 ("llama-3.2-vision-90b", 20, 19_235_414_020))
 # phase 10: bf16 dense peak of the data sheet (SXM / PCIe), for the MFU
 BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}
 # phase 9 (SSM) (d): the long prefill's length per config, cut from 4096
 # to keep the script under 1000 s (xlstm's sLSTM is a Python loop over
-# time, on the card ≈ 15 s a 4096-token pass)
-LONG_PREFILL = {"zamba2-1.2b": 2048, "xlstm-350m": 512}
+# time, on the card ≈ 15 s a 4096-token pass); zamba2's from 2048 to 1024
+# when phase 11 (e) came
+LONG_PREFILL = {"zamba2-1.2b": 1024, "xlstm-350m": 512}
 # phase 11 (d): phi4-mini's depth over two ranks sharing the card (a layer
-# 100.7 M parameters, the embedding 614.6 M; 16 B a parameter in training)
-DENSE_TP_LAYERS = 4
+# 100.7 M parameters, the embedding 614.6 M; 16 B a parameter in training);
+# cut from 4 to make room for (e) (the taught gates read alike at 2, 4 and
+# 8 layers)
+DENSE_TP_LAYERS = 2
+# phase 11 (e): the smoke configs of the leaf kinds beyond the dense GQA
+# ones, (name, arch, config overrides, meshes): MLA alone (a dense FFN),
+# MLA beside the expert-parallel MoE, cross-attention and memory_proj,
+# Mamba2 beside GQA, mLSTM and sLSTM
+LEAVES_SMOKE = (
+    ("mla", "deepseek-v2-236b", {"ffn_kind": "dense", "moe": None},
+     ("1x2", "2x1")),
+    ("mla_ep", "deepseek-v2-236b", {}, ("1x2",)),
+    ("vision", "llama-3.2-vision-90b", {}, ("1x2", "2x1")),
+    ("zamba", "zamba2-1.2b", {}, ("1x2", "2x1")),
+    ("xlstm", "xlstm-350m", {}, ("1x2", "2x1")))
+# and at full width, cut in depth: (arch, layers, train, meshes, taught
+# layers).  deepseek-v2's layer 0 (MLA and its dense FFN, d_ff 12 288;
+# 1.39 B parameters), one zamba2 period (5 Mamba2 + 1 attention; 0.33 B),
+# xlstm's mLSTM and sLSTM (0.13 B), llama-vision's first 5 layers, the
+# least that hold a cross layer (6.40 B: ~100 GB of f32 training state,
+# which does not fit beside two ranks, so bf16 parameters and the forward
+# alone).  MLA and the cross layer only over (1, 2): over (2, 1) their
+# fsdp gathers would move ~2.8 and ~12.8 GB of bf16 weights through the
+# host at ~0.5 GB/s
+LEAVES_FULL = (
+    ("deepseek-v2-236b", 1, True, ("1x2",), (0,)),
+    ("zamba2-1.2b", 6, True, ("1x2", "2x1"), (0,)),
+    ("xlstm-350m", 2, True, ("1x2", "2x1"), (0, 1)),
+    ("llama-3.2-vision-90b", 5, False, ("1x2",), (4,)))
 # its full-width gates against world 1 (bf16 compute): each step's loss
 # relative (the random model's loss is ln V to 7e-4, so the limit lies
 # below that) and the logits of max |logit|, each raised to twice world
@@ -2784,10 +2827,11 @@ class Smoke:
         """The SSM and cross-attention configs through ``ServeEngine`` on
         the card: (a) card against CPU for zamba2's, xlstm's and
         llama-3.2-vision's smoke configs; (b) ``launch.serve --full`` for
-        zamba2-1.2b and xlstm-350m; (c) zamba2-1.2b and xlstm-350m whole and
-        llama-3.2-vision-90b at full width cut to 20 of 100 layers, each
+        zamba2-1.2b and xlstm-350m; (c) zamba2-1.2b whole, xlstm-350m at 12
+        of 24 layers and llama-3.2-vision-90b at 20 of 100, at full width, each
         timed, llama-vision with a memory; (d) a long prefill (zamba2
-        2048 tokens, xlstm 512), then a decode, against a full forward.  The path runs none
+        1024 tokens, xlstm 512), then a decode, against a full forward.
+        The path runs none
         of the three hand-written kernels: counts set to 0 before it and
         read after must stay 0."""
         torch = self.torch
@@ -2831,7 +2875,7 @@ class Smoke:
 
     def _long_prefill(self, cfg, model, n):
         """(d) 1 x ``n`` random tokens prefilled (``LONG_PREFILL``: zamba2
-        2048, 8 chunks of 256, the inter-chunk scan at full width; xlstm
+        1024, 4 chunks of 256, the inter-chunk scan at full width; xlstm
         512, its sLSTM a Python loop over time), then token n + 1
         decoded, on the served weights (cast at use), against the last
         logits of a full forward of the n + 1 (the reference's decode
@@ -2974,8 +3018,8 @@ class Smoke:
         """The zoo's train step on the card: (a) card against CPU for the
         five dense smoke configs, the two MoE ones and the three SSM /
         cross ones; (b) ``launch.train`` with an injected failure and a
-        resume; (c) phi4-mini-3.8b, zamba2-1.2b and xlstm-350m at full
-        width.  The path runs none of the three hand-written kernels:
+        resume; (c) phi4-mini-3.8b, zamba2-1.2b and xlstm-350m (12 of 24
+        layers) at full width.  The path runs none of the three hand-written kernels:
         counts set to 0 before it and read after must stay 0."""
         torch = self.torch
         t0 = time.perf_counter()
@@ -2986,9 +3030,9 @@ class Smoke:
         self.train["launcher"] = self._train_launcher()
         self.train["full_width"] = self._train_full_width(ZOO_ARCH,
                                                           3_836_021_760)
-        for arch, _, n_params in ZOO_SSM_FULL[:2]:
+        for arch, layers, n_params in ZOO_SSM_FULL[:2]:
             self.train[f"full_width_{arch}"] = self._train_full_width(
-                arch, n_params)
+                arch, n_params, layers)
             torch.cuda.empty_cache()
         launches = self.read_launches()
         check(not any(launches.values()),
@@ -3208,16 +3252,19 @@ class Smoke:
             + json.dumps(row))
         return row
 
-    def _train_full_width(self, arch, want_params):
+    def _train_full_width(self, arch, want_params, layers=None):
         """(c) ``arch`` at full width (phi4-mini-3.8b, zamba2-1.2b,
-        xlstm-350m): f32 masters drawn on the card, bf16 compute, remat as
-        the config says, AdamW in place; six steps of the launcher's loader
+        xlstm-350m), ``layers`` of it (all by default; ``want_params`` its
+        parameters there): f32 masters drawn on the card, bf16 compute,
+        remat as the config says, AdamW in place; six steps of the
+        launcher's loader
         (batch 8, seq 128, ``warmup_steps`` 1 as ``train()`` sets it for 6
         steps).  Model FLOPs: 6 N a token, plus 12 L_attn H hd s a token for
         the causal attention layers' scores (zamba2's 6 shared-pattern
         attention layers, none in xlstm); left out: the SSD's and mLSTM's
         intra-chunk quadratic terms, the scans and sLSTM's recurrence, and
         the embedding counted in N though it is a gather."""
+        import dataclasses
         np, torch = self.np, self.torch
         from repro_torch.common.config import TrainConfig
         from repro_torch.configs import get_config
@@ -3225,6 +3272,8 @@ class Smoke:
         from repro_torch.models import steps, transformer
         from repro_torch.optim import adamw
         cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         n_params = transformer.count_params(cfg)
         check(cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
               and cfg.remat and n_params == want_params,
@@ -3323,8 +3372,8 @@ class Smoke:
             "state_bytes": state_bytes, "peak_bytes_steps": peak,
             "peak_bytes_with_optimizer_timing": opt_peak}
         del model, params, opt, batch
-        log(f"phase 10 (c): {arch} full width, train steps ({self.smi}): "
-            + json.dumps(row))
+        log(f"phase 10 (c): {arch} full width, {cfg.num_layers} layers, "
+            f"train steps ({self.smi}): " + json.dumps(row))
         return row
 
     # -- phase 11: the model mesh and expert-parallel MoE ------------------
@@ -3337,7 +3386,9 @@ class Smoke:
         and ``launch.train --mesh single`` at world 1; (d) the dense GQA
         leaves as their ``param_specs`` blocks: phi4-mini's train step
         over (1, 2) and (2, 1) at smoke size card against CPU and at full
-        width against world 1.  No rank launches a join kernel (each
+        width against world 1; (e) the same for MLA, cross-attention, the
+        SSM mixers and the frontend projections (deepseek-v2, llama-
+        vision, zamba2, xlstm).  No rank launches a join kernel (each
         rank's counts, read as its job ends, and this process's)."""
         torch = self.torch
         t0 = time.perf_counter()
@@ -3345,8 +3396,9 @@ class Smoke:
         self.ep_launches = []
         self.ep = {"smoke": self._ep_smoke()}
         self.ep["full_width"] = self._ep_full_width()
-        self.ep["checkpoint"] = self._ep_checkpoint()
-        self.ep["dense_tp"] = self._dense_tp()
+        tp = self._tp_world()
+        self.ep["checkpoint"], self.ep["dense_tp"], self.ep["leaves_tp"] = \
+            tp["c"], tp["d"], tp["e"]
         launches = [self.read_launches()] + self.ep_launches
         check(not any(v for l in launches for v in l.values()),
               f"phase 11 launched a join kernel: {launches}")
@@ -3763,12 +3815,13 @@ class Smoke:
             f"EP over (1, 2) vs world 1 ({self.smi}): " + json.dumps(out))
         return out
 
-    def _ep_checkpoint(self):
-        """(c) The deepseek-v2 smoke model's tree saved at world 1 and
-        restored onto a (1, 2) world on the card with the reference's
-        ``param_specs``: every rank's blocks equal the slices of the saved
-        leaves; then ``launch.train --mesh single`` at world 1 exits
-        non-zero with the production mesh's size error."""
+    def _ep_checkpoint_job(self):
+        """(c) The deepseek-v2 smoke model's tree saved at world 1, and the
+        ``restore`` job and its report: restored onto a (1, 2) world on the
+        card with the reference's ``param_specs``, every rank's blocks
+        equal the slices of the saved leaves; then ``launch.train --mesh
+        single`` at world 1 exits non-zero with the production mesh's
+        size error."""
         torch = self.torch
         from repro_torch.checkpoint import checkpoint as ckpt
         from repro_torch.configs import get_smoke
@@ -3781,101 +3834,208 @@ class Smoke:
         model = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                         "cpu")
         ckpt.save(d, 3, model_tree_to_numpy(cfg, model))
-        ranks = self._world((1, 2), "restore", {"arch": arch, "dir": d,
-                                                "specs": "param"})
-        for r, res in enumerate(ranks):
-            check(res["all_equal"] and res["step"] == 3
-                  and res["device"].startswith("cuda"),
-                  f"checkpoint onto (1, 2): rank {r} {res}")
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "phi4-mini-3.8b", "--smoke", "--steps", "1", "--mesh",
-               "single", "--device", "cuda", "--checkpoint-dir",
-               os.path.join(ROOT, "build", "ck_mesh_single")]
-        proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
-                                                      PYTHONPATH=SRC),
-                              capture_output=True, text=True, timeout=300)
-        check(proc.returncode != 0 and "needs a world of 256 ranks"
-              in proc.stderr, f"launch.train --mesh single at world 1: exit "
-              f"{proc.returncode}, {proc.stderr[-500:]}")
-        out = {"restore_1x2": [{k: res[k] for k in ("step", "all_equal",
-                                                   "leaves", "device")}
-                               for res in ranks],
-               "mesh_single_exit": proc.returncode,
-               "mesh_single_error": proc.stderr.strip().splitlines()[-1]}
-        log("phase 11 (c): checkpoint world 1 -> (1, 2) and --mesh single: "
-            + json.dumps(out))
-        return out
 
-    def _dense_tp(self):
-        """(d) The dense GQA leaves over a model mesh: one world of two
-        ranks sharing the card, as (1, 2) and as (2, 1) over ``("data",
-        "model")`` (``_dense_tp_rank``).  Smoke: phi4-mini's smoke config
-        in float32 on each mesh, on the card and on the CPU in the world
-        (weights from seed 0 drawn on the CPU; a forward of 8 x 64 and
-        one train step), and the CPU's step on weights nudged one ulp:
-        logits within 1e-4 of max |logit|, loss 1e-5 relative, ``lr``
-        equal, ``grad_norm`` and each leaf of ``m`` 1e-3 of its max, each
-        raised to the CPU's floor where larger.  Full width: phi4-mini-
-        3.8b (d 3072, 24 / 8 heads, d_ff 8192, vocab 200 064, tied) cut to
-        ``DENSE_TP_LAYERS`` layers, phase 10's settings (f32 masters, bf16
-        compute, remat, AdamW, warmup 1 of 6), two steps on two batches of
-        8 x 128: world 1 on each rank in turn (the other waiting), then
-        each mesh with each rank holding its blocks, against world 1:
-        every loss finite and ``grad_norm`` > 0, ``lr`` equal, each step's
-        loss, the logits of the first two rows (before step 1), and layer
-        0 and the embedding's two uses (lookup and tied logits) taught on
-        fixed inputs under a fixed cotangent (outputs and every gradient,
-        each rank's blocks), within ``DENSE_TP_TOL`` (the loss and the
-        logits raised to twice world 1's own floor where that is larger:
-        world 1 on rank 0 again on weights nudged one ulp, whose taught
-        results are printed).  The whole model's gradients are printed
-        beside that floor, not held: in bf16 this random model's
-        gradients are chaos at every depth tried (on the card a one-ulp
-        nudge moves ``m`` by about its own norm at 2, 4 and 8 layers), so
-        the taught layer carries the gradient check at full width.
-        Recorded: step ms a rank (events) against world
-        1's, each rank's peak memory, collective calls and bytes by axis
-        and route."""
+        def report(ranks):
+            for r, res in enumerate(ranks):
+                check(res["all_equal"] and res["step"] == 3
+                      and res["device"].startswith("cuda"),
+                      f"checkpoint onto (1, 2): rank {r} {res}")
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                   "phi4-mini-3.8b", "--smoke", "--steps", "1", "--mesh",
+                   "single", "--device", "cuda", "--checkpoint-dir",
+                   os.path.join(ROOT, "build", "ck_mesh_single")]
+            proc = subprocess.run(cmd, cwd=ROOT, env=dict(
+                os.environ, PYTHONPATH=SRC), capture_output=True, text=True,
+                timeout=300)
+            check(proc.returncode != 0 and "needs a world of 256 ranks"
+                  in proc.stderr, f"launch.train --mesh single at world 1: "
+                  f"exit {proc.returncode}, {proc.stderr[-500:]}")
+            out = {"restore_1x2": [{k: res[k] for k in (
+                "step", "all_equal", "leaves", "device")} for res in ranks],
+                "mesh_single_exit": proc.returncode,
+                "mesh_single_error": proc.stderr.strip().splitlines()[-1]}
+            log("phase 11 (c): checkpoint world 1 -> (1, 2) and --mesh "
+                "single: " + json.dumps(out))
+            return out
+        return "restore", {"arch": arch, "dir": d, "specs": "param"}, report
+
+    def _dense_tp_job(self):
+        """(d) The dense GQA leaves over a model mesh, ``_dense_tp_rank``'s
+        payload and its report: one world of two ranks sharing the card,
+        as (1, 2) and as (2, 1) over ``("data", "model")``.  Smoke:
+        phi4-mini's smoke config in float32 on each mesh, on the card and
+        on the CPU in the world (weights from seed 0 drawn on the CPU; a
+        forward of 8 x 64 and one train step), and the CPU's step on
+        weights nudged one ulp (``_smoke_vs_cpu``).  Full width:
+        phi4-mini-3.8b (d 3072, 24 / 8 heads, d_ff 8192, vocab 200 064,
+        tied) cut to ``DENSE_TP_LAYERS`` layers, two steps on two batches
+        of 8 x 128 against world 1, layer 0 and the embedding's two uses
+        (lookup and tied logits) taught (``_vs_world1``, held by
+        ``_full_vs_world1``)."""
         np = self.np
-        from repro_torch.configs import get_smoke
+        from repro_torch.configs import get_config, get_smoke
         rng = np.random.default_rng(26)
         smoke = get_smoke(ZOO_ARCH)
         toks = rng.integers(0, smoke.vocab_size, (8, 65))
         base = {"arch": ZOO_ARCH, "dtype": "float32", "forward": toks[:, :-1],
                 "train": {"tokens": toks[:, :-1], "labels": toks[:, 1:]}}
-        full = rng.integers(0, 200_064, (2, 8, 129))
+        triple = [dict(base, device="cuda"), dict(base, device="cpu"),
+                  dict(base, device="cpu", nudge=1)]
+        full = rng.integers(0, get_config(ZOO_ARCH).vocab_size, (2, 8, 129))
+        payload = {"smoke": {"1x2": triple, "2x1": triple},
+                   "layers": DENSE_TP_LAYERS, "tokens": full}
+
+        def report(ranks):
+            out = {"rank_wall_s": [r["wall_s"] for r in ranks],
+                   "layers": DENSE_TP_LAYERS,
+                   "smoke": self._smoke_vs_cpu("(d)", ranks, [ZOO_ARCH]),
+                   "full": self._full_vs_world1(ranks, ("1x2", "2x1"))}
+            log(f"phase 11 (d): phi4-mini dense GQA leaves as param_specs "
+                f"blocks over (1, 2) and (2, 1), smoke card vs cpu and full "
+                f"width {DENSE_TP_LAYERS} layers vs world 1 ({self.smi}): "
+                + json.dumps(out))
+            self._check_full("(d)", out["full"])
+            return out
+        return _dense_tp_rank, payload, report
+
+    def _leaves_tp_job(self):
+        """(e) MLA, cross-attention, the SSM mixers and the frontend
+        projections as their ``param_specs`` blocks, ``_leaves_tp_rank``'s
+        payload and its report: one world of two ranks sharing the card,
+        as (1, 2) and as (2, 1).  Smoke: each config of ``LEAVES_SMOKE`` in
+        float32 on each of its meshes, card against CPU as (d)'s smoke
+        (``_smoke_vs_cpu``; 8 x 32 tokens, llama-vision's memory (8, 16,
+        24), every cross gate 0.5), each limit raised to twice the CPU's
+        floor where larger, as phase 10 (a) holds these configs.  Full width, each model of
+        ``LEAVES_FULL`` cut in depth, against world 1 on its meshes
+        (``_vs_world1``, held by ``_full_vs_world1``): two steps on two
+        batches of 8 x 128, phase 10's settings (f32 masters, bf16
+        compute, remat, AdamW), or for llama-vision (too large to train
+        beside two ranks) bf16 parameters and the forward alone, with a
+        memory of (2, 1600, 1280); the logits and one layer of each new
+        kind taught, held against world 1 run on the mesh's groups of rows
+        (``_vs_world1``'s witness: at (2, 1) each rank runs one row of two,
+        and xlstm's bf16 model moves its logits by 0.999 of max and
+        sLSTM's gradients by 5x their norm under a one-ulp nudge, so a GEMM
+        of another batch moves them too).  The whole model's gradients
+        are printed, not held (chaos in bf16, (d))."""
+        np = self.np
+        from repro_torch.configs import get_config, get_smoke
+        rng = np.random.default_rng(27)
+        smoke = {"1x2": [], "2x1": []}
+        names = {"1x2": [], "2x1": []}
+        for name, arch, over, meshes in LEAVES_SMOKE:
+            cfg = get_smoke(arch)
+            toks = rng.integers(0, cfg.vocab_size, (8, 33))
+            base = {"arch": arch, "overrides": over, "dtype": "float32",
+                    "gate": 0.5, "forward": toks[:, :-1],
+                    "train": {"tokens": toks[:, :-1], "labels": toks[:, 1:]}}
+            if cfg.cross_attn_every:
+                base["memory"] = rng.normal(
+                    size=(8, 16, cfg.frontend_embed_dim)).astype(np.float32)
+            for m in meshes:
+                smoke[m] += [dict(base, device="cuda"),
+                             dict(base, device="cpu"),
+                             dict(base, device="cpu", nudge=1)]
+                names[m].append(name)
+        full = []
+        for arch, layers, train, meshes, taught in LEAVES_FULL:
+            cfg = get_config(arch)
+            full.append({"arch": arch, "layers": layers, "train": train,
+                         "meshes": meshes, "taught": taught,
+                         "memory_len": cfg.cross_attn_memory_len,
+                         "tokens": rng.integers(0, cfg.vocab_size,
+                                                (2 if train else 1, 8, 129))})
+        def report(ranks):
+            out = {"rank_wall_s": [r["wall_s"] for r in ranks],
+                   "smoke": {}, "full": {}}
+            for m in ("1x2", "2x1"):
+                sub = [{"smoke": {m: res["smoke"][m]}} for res in ranks]
+                out["smoke"][m] = self._smoke_vs_cpu("(e)", sub, names[m],
+                                                     twice=True)[m]
+            for q in full:
+                res = [r["full"][q["arch"]] for r in ranks]
+                out["full"][q["arch"]] = self._full_vs_world1(res,
+                                                              q["meshes"])
+            log(f"phase 11 (e): MLA, cross, SSM mixers and projections as "
+                f"param_specs blocks over (1, 2) and (2, 1), smoke card vs "
+                f"cpu and full width vs world 1 ({self.smi}): "
+                + json.dumps(out))
+            for arch, row in out["full"].items():
+                self._check_full(f"(e) {arch}", row)
+            return out
+        return _leaves_tp_rank, {"smoke": smoke, "full": full}, report
+
+    def _tp_world(self, subs="cde"):
+        """Sub-phases (c), (d) and / or (e) in one world of two ranks
+        sharing the card (``ep_world``'s ``many``: one spawn), after
+        ``_warm_rank`` on both ranks at once: a rank process's first
+        full-width bf16 training step takes seconds more than its next
+        ones, and world 1, which runs on each rank in turn, would pay
+        that twice in a row.  Each sub-phase's report, keyed by its
+        letter."""
+        jobs = {"c": self._ep_checkpoint_job, "d": self._dense_tp_job,
+                "e": self._leaves_tp_job}
+        parts = [jobs[k]() for k in subs]
         t0 = time.perf_counter()
-        ranks = self._world((1, 2), _dense_tp_rank, {
-            "smoke": [dict(base, device="cuda"), dict(base, device="cpu"),
-                      dict(base, device="cpu", nudge=1)],
-            "layers": DENSE_TP_LAYERS, "tokens": full}, timeout=600)
-        wall = time.perf_counter() - t0
-        out = {"world_wall_s": wall, "layers": DENSE_TP_LAYERS,
-               "smoke": {}, "full": {}}
-        for mesh in ("1x2", "2x1"):
-            rows = []
-            for r, res in enumerate(ranks):
-                card, cpu, nudged = res["smoke"][mesh]
-                fwd = float(np.abs(card["forward"] - cpu["forward"]).max()
-                            / np.abs(cpu["forward"]).max())
-                errs = dict(zip(("loss", "grad_norm", "m"),
-                                _step_dist(card, cpu)))
-                floor = dict(zip(("loss", "grad_norm", "m"),
-                                 _step_dist(nudged, cpu)))
-                tol = {"loss": max(1e-5, floor["loss"]),
-                       "grad_norm": max(1e-3, floor["grad_norm"]),
-                       "m": max(1e-3, floor["m"])}
-                check(fwd <= 1e-4 and card["metrics"]["lr"]
-                      == cpu["metrics"]["lr"]
-                      and all(errs[k] <= tol[k] for k in tol),
-                      f"(d) smoke {mesh} rank {r}: card vs cpu logits {fwd}"
-                      f", step {errs} (tolerances {tol})")
-                rows.append({"logits_err": fwd, **errs, "cpu_floor": floor,
-                             "collectives_card": card["train_ledger"][
-                                 "by_axis"]})
-            out["smoke"][mesh] = rows
+        ranks = self._world((1, 2), "many", {"jobs": [(_warm_rank, {})] + [
+            (job, payload) for job, payload, _ in parts]}, timeout=1200)
+        log(f"phase 11 ({', '.join(subs)}): one world of two ranks, "
+            f"{time.perf_counter() - t0:.1f} s, the warm-up "
+            f"{[r[0]['wall_s'] for r in ranks]} s")
+        return {k: report([r[i + 1] for r in ranks])
+                for i, (k, (_, _, report)) in enumerate(zip(subs, parts))}
+
+
+    def _smoke_vs_cpu(self, label, ranks, archs, twice=False):
+        """Each rank's smoke results of each mesh, in triples (card, CPU,
+        CPU on weights nudged one ulp) one a config of ``archs``: logits
+        within 1e-4 of max |logit|, loss 1e-5 relative, ``lr`` equal,
+        ``grad_norm`` and each leaf of ``m`` 1e-3 of its max, the step's
+        raised to the CPU's floor (the nudged run) where larger; with
+        ``twice`` each, the logits too, raised to twice that floor, as
+        phases 9 and 10 (a) hold the chaotic SSM and cross smoke configs
+        (their card-vs-CPU distance is of the floor's size, so one draw
+        of it lies above the floor about half the time)."""
+        np = self.np
+        k = 2 if twice else 1
+        out = {}
+        for mesh in ranks[0]["smoke"]:
+            rows = {}
+            for i, arch in enumerate(archs):
+                for r, res in enumerate(ranks):
+                    card, cpu, nudged = res["smoke"][mesh][3 * i:3 * i + 3]
+                    fwd = float(np.abs(card["forward"] - cpu["forward"]).max()
+                                / np.abs(cpu["forward"]).max())
+                    errs = dict(zip(("loss", "grad_norm", "m"),
+                                    _step_dist(card, cpu)))
+                    floor = dict(zip(("loss", "grad_norm", "m"),
+                                     _step_dist(nudged, cpu)))
+                    floor["logits"] = float(
+                        np.abs(nudged["forward"] - cpu["forward"]).max()
+                        / np.abs(cpu["forward"]).max())
+                    tol = {"loss": max(1e-5, k * floor["loss"]),
+                           "grad_norm": max(1e-3, k * floor["grad_norm"]),
+                           "m": max(1e-3, k * floor["m"])}
+                    tol_fwd = max(1e-4, 2 * floor["logits"]) if twice \
+                        else 1e-4
+                    check(fwd <= tol_fwd and card["metrics"]["lr"]
+                          == cpu["metrics"]["lr"]
+                          and all(errs[n] <= tol[n] for n in tol),
+                          f"{label} smoke {arch} {mesh} rank {r}: card vs "
+                          f"cpu logits {fwd} (tolerance {tol_fwd}), step "
+                          f"{errs} (tolerances {tol})")
+                    rows.setdefault(arch, []).append({
+                        "logits_err": fwd, **errs, "cpu_floor": floor,
+                        "collectives_card": card["train_ledger"]["by_axis"]})
+            out[mesh] = rows
+        return out
+
+    def _full_vs_world1(self, ranks, meshes):
+        """A full-width model's ``_vs_world1`` results of every rank: world
+        1's, its one-ulp floor (rank 0's), the tolerances, and each mesh's
+        rows with their distances from world 1 step by step."""
         w1 = [res["world1"] for res in ranks]
-        out["full"]["world1"] = w1
 
         def apart(row, want):
             """Per step: loss and grad_norm relative, ``m``'s distances."""
@@ -3888,39 +4048,46 @@ class Smoke:
         nudged = ranks[0]["world1_nudged"]
         floor = {"steps": apart(nudged, w1[0]),
                  "logits": nudged["logits_err"], "teacher": nudged["teacher"]}
+        # twice the floor raises the logits' limit only below 1: of max
+        # |logit|, all-zero logits read 1 (xlstm's bf16 floor is 0.999)
+        raised = 2 * floor["logits"]
         tol = {"loss": [max(DENSE_TP_TOL["loss"], 2 * f["loss"])
                         for f in floor["steps"]],
-               "logits": max(DENSE_TP_TOL["logits"], 2 * floor["logits"]),
+               "logits": max(DENSE_TP_TOL["logits"],
+                             raised if raised < 1 else 0.0),
                "teacher": DENSE_TP_TOL["teacher"]}
-        out["full"].update(world1_floor=floor, tol=tol)
-        for mesh in ("1x2", "2x1"):
+        out = {"world1": w1, "world1_floor": floor, "tol": tol}
+        for mesh in meshes:
             rows = [res["full"][mesh] for res in ranks]
             for r, row in enumerate(rows):
                 row["vs_world1"] = apart(row, w1[r])
                 row["step_ms_vs_world1"] = [a / b for a, b in zip(
                     row["step_ms"], w1[r]["step_ms"])]
-            out["full"][mesh] = rows
-        log(f"phase 11 (d): phi4-mini dense GQA leaves as param_specs blocks"
-            f" over (1, 2) and (2, 1), smoke card vs cpu and full width "
-            f"{DENSE_TP_LAYERS} layers vs world 1 ({self.smi}): "
-            + json.dumps(out))
-        for mesh in ("1x2", "2x1"):
-            for r, row in enumerate(out["full"][mesh]):
+            out[mesh] = rows
+        return out
+
+    def _check_full(self, label, full):
+        """``_full_vs_world1``'s gates: on every mesh and rank the logits
+        and every taught output and gradient within their tolerances, and
+        each step's loss finite and within its tolerance, ``grad_norm`` >
+        0 and ``lr`` equal to world 1's."""
+        np, tol = self.np, full["tol"]
+        for mesh in (k for k in full if k not in ("world1", "world1_floor",
+                                                 "tol")):
+            for r, row in enumerate(full[mesh]):
                 bad = {k: v for k, v in row["teacher"].items()
                        if not v <= tol["teacher"]}
                 check(row["logits_err"] <= tol["logits"] and not bad,
-                      f"(d) {mesh} rank {r} vs world 1: logits "
+                      f"{label} {mesh} rank {r} vs world 1: logits "
                       f"{row['logits_err']} (tolerance {tol['logits']}), "
-                      f"layer 0 and the embedding taught {bad} (tolerance "
-                      f"{tol['teacher']}; world 1 nudged one ulp "
-                      f"{floor['teacher']})")
+                      f"taught {bad} (tolerance {tol['teacher']}; world 1 "
+                      f"nudged one ulp {full['world1_floor']['teacher']})")
                 for i, (got, d) in enumerate(zip(row["metrics"],
                                                  row["vs_world1"])):
                     check(np.isfinite(got["loss"]) and got["grad_norm"] > 0
                           and d["lr_equal"] and d["loss"] <= tol["loss"][i],
-                          f"(d) {mesh} rank {r} step {i + 1} vs world 1: "
-                          f"{got}, {d} (loss tolerance {tol['loss'][i]})")
-        return out
+                          f"{label} {mesh} rank {r} step {i + 1} vs world 1:"
+                          f" {got}, {d} (loss tolerance {tol['loss'][i]})")
 
     # -- phase 12: the reference's invariants on the card -------------------
     def phase12_invariants(self):
@@ -4418,46 +4585,128 @@ def _fleet_world_rank(mesh, dev, p):
     return out
 
 
-# -- phase 11 (d): the job each rank of its world runs ----------------------
+# -- phase 11 (d) and (e): the jobs each rank of their worlds runs ---------
+
+def _warm_rank(mesh, dev, p):
+    """One bf16 training step of phi4-mini-3.8b at full width cut to one
+    layer (phase 10's settings), drawn on the card from seed 0, so that
+    this rank process's first full-width step (seconds more than the
+    next, which world 1 would pay on each rank in turn) runs while the
+    other rank pays its own."""
+    import dataclasses
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), num_layers=1)
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw.init_opt_state(dict(model.named_parameters()))
+    toks = torch.randint(0, cfg.vocab_size, (8, 129), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    steps.make_train_step(cfg, TrainConfig(total_steps=6, warmup_steps=1))(
+        model, opt, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"wall_s": round(time.perf_counter() - t0, 2)}
+
+
+def _smoke_jobs(meshes, smoke):
+    """``ep_world``'s ``model`` job for each payload of ``smoke[name]`` on
+    each mesh ``name``."""
+    import torch
+    from repro_torch.launch.ep_world import JOBS
+    return {name: [JOBS["model"](m, torch.device(q["device"]), q)
+                   for q in smoke.get(name, ())]
+            for name, m in meshes.items()}
+
 
 def _dense_tp_rank(mesh, dev, p):
     """One rank of phase 11 (d)'s world (built as (1, 2); the (2, 1) mesh
-    is made over the same ranks).  Smoke: ``ep_world``'s ``model`` job for
-    each payload of ``smoke`` on each mesh.  Full width: phi4-mini-3.8b
-    cut to ``layers`` layers, f32 masters drawn on the card from seed 0;
-    world 1 on each rank in turn (the others wait at a barrier): layer 0
-    and the embedding taught (``teacher``), the logits of the first two
-    rows of the first batch, then two steps on the two batches of
-    ``tokens``, keeping what they give and ``m`` after each step; world 1
-    on weights nudged one ulp on rank 0 (its floor); then on each mesh
-    the model drawn by each rank in turn (a draw holds a whole leaf's f32
-    scratch), its blocks kept, the same calls.  Against world 1's: the
-    taught outputs and gradients, the logits (of max |logit|), and after
-    each step ``m``'s distance over the rank's blocks, of the whole tree
-    and of the worst matrix leaf, each relative to world 1's norm there.
-    Step ms by CUDA events, peak memory a run, the ledger of the two
-    steps."""
+    is made over the same ranks): the smoke payloads of each mesh
+    (``_smoke_jobs``), then phi4-mini-3.8b cut to ``layers`` layers
+    against world 1 (``_vs_world1``, layer 0 and the embedding's two uses
+    taught) on both meshes."""
     import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import make_mesh
+    t0 = time.perf_counter()
+    meshes = {"1x2": mesh, "2x1": make_mesh((2, 1), ("data", "model"))}
+    out = {"smoke": _smoke_jobs(meshes, p["smoke"])}
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), num_layers=p["layers"])
+    out.update(_vs_world1(mesh, meshes, dev, cfg, {
+        "tokens": p["tokens"], "taught": (0,), "embed": True}))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _leaves_tp_rank(mesh, dev, p):
+    """One rank of phase 11 (e)'s world (built as (1, 2), the (2, 1) mesh
+    over the same ranks): the smoke payloads of each mesh
+    (``_smoke_jobs``), then each model of ``full`` against world 1 on its
+    meshes (``_vs_world1``): ``arch`` at full width cut to ``layers``, f32
+    masters, or (``train`` false) bf16 parameters and the forward
+    alone."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import make_mesh
+    t0 = time.perf_counter()
+    meshes = {"1x2": mesh, "2x1": make_mesh((2, 1), ("data", "model"))}
+    out = {"smoke": _smoke_jobs(meshes, p["smoke"]), "full": {}}
+    for q in p["full"]:
+        cfg = (dataclasses.replace(get_config(q["arch"]),
+                                   num_layers=q["layers"])
+               if q["train"] else _full_width_cfg(q["arch"], q["layers"]))
+        out["full"][q["arch"]] = _vs_world1(
+            mesh, {k: meshes[k] for k in q["meshes"]}, dev, cfg, q)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _vs_world1(mesh, meshes, dev, cfg, q):
+    """``cfg`` on each of ``meshes`` against world 1, phase 10's settings
+    (remat, AdamW, warmup 1 of 6), the weights drawn on the card from seed
+    0 (every cross gate then 0.5).  World 1 runs on each rank in turn (the
+    others wait at a barrier): the layers of ``taught`` (and with
+    ``embed`` the embedding's two uses) taught, the logits of ``first``
+    (the first two rows of ``tokens``' first batch, with ``memory``'s
+    (2, M, F) embeds drawn from seed 7 when the config has cross layers),
+    then with ``train`` (default) a step on each batch of ``tokens`` (B,
+    8, S + 1), keeping what they give and ``m`` after each; world 1 on
+    weights nudged one ulp on rank 0 (its floor); then on each mesh the
+    model drawn by each rank in turn (a draw holds a whole leaf's f32
+    scratch), its blocks kept, the same calls.  Against world 1's run on
+    the mesh's groups of rows (the witness: the mesh's arithmetic on one
+    rank; plain world 1 where the mesh splits no rows): the taught
+    outputs and gradients and the logits (of max |logit|; plain world 1's
+    distance printed beside); and after each step ``m``'s distance over
+    the rank's blocks, of the whole tree and of the worst matrix leaf,
+    each relative to world 1's norm there.
+    Step ms by CUDA events, peak memory a run, the ledger of the calls.
+    Returns {"world1": row, "world1_nudged": row (rank 0), "full": {mesh:
+    row}}."""
     import torch
     import torch.distributed as dist
     from repro_torch.common.config import TrainConfig
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.mesh import AxisEnv, block_slices, make_mesh
-    from repro_torch.launch.ep_world import JOBS, nudge_
+    from repro_torch.distributed.mesh import AxisEnv, axis_size, block_slices
+    from repro_torch.launch.ep_world import nudge_
     from repro_torch.models import steps, transformer
     from repro_torch.models.layers import tree_leaves
     from repro_torch.optim import adamw
-    meshes = {"1x2": mesh, "2x1": make_mesh((2, 1), ("data", "model"))}
-    out = {"smoke": {}, "full": {}}
-    for name, m in meshes.items():
-        out["smoke"][name] = [JOBS["model"](m, torch.device(q["device"]), q)
-                              for q in p["smoke"]]
-    cfg = dataclasses.replace(get_config(ZOO_ARCH), num_layers=p["layers"])
     tcfg = TrainConfig(total_steps=6, warmup_steps=1)
     batches = [{"tokens": torch.as_tensor(t[:, :-1], device=dev),
                 "labels": torch.as_tensor(t[:, 1:], device=dev)}
-               for t in p["tokens"]]
+               for t in q["tokens"]]
     first = batches[0]["tokens"][:2]
+    train = q.get("train", True)
+    memory = None
+    if cfg.cross_attn_every:
+        g = torch.Generator(device=dev).manual_seed(7)
+        memory = torch.randn((2, q["memory_len"], cfg.frontend_embed_dim),
+                             generator=g, device=dev)
     specs = dict(tree_leaves(transformer.local_specs(
         cfg, AxisEnv.from_mesh(mesh))))
     spec_of = {}        # parameter name -> its spec, a layer's for a scan
@@ -4466,39 +4715,86 @@ def _dense_tp_rank(mesh, dev, p):
         spec_of.update((n, sp[1:] if path[0] == "scanned" else sp)
                        for n in names)
 
-    def teacher(model, on):
-        """Layer 0, and the embedding's two uses (the lookup of ``first``
-        and the tied logits), each on fixed inputs (seed 5) under a fixed
-        cotangent: the outputs and the gradients (this rank's blocks),
-        free of the composed model's chaos."""
+    def row_groups(on):
+        """The groups a mesh splits ``first``'s rows into (1: whole)."""
+        if on is None:
+            return 1
+        ways = axis_size(on, AxisEnv.from_mesh(on).batch)
+        return ways if first.shape[0] % ways == 0 else 1
+
+    def teacher(model, on, groups=1):
+        """Each layer of ``taught`` (a cross layer over a fixed memory of
+        (2, M, d)), and with ``embed`` the embedding's two uses (the
+        lookup of ``first`` and the tied logits), each on fixed inputs
+        (seed 5) under a fixed cotangent: the outputs and the gradients
+        (this rank's blocks), free of the composed model's chaos.  World 1
+        with ``groups`` > 1 runs each layer on that many groups of the
+        rows in turn, as a mesh that splits the batch so many ways does
+        (the witness: the mesh's arithmetic on one rank)."""
         env = AxisEnv.from_mesh(on) if on is not None else None
+        split = on is not None and on.size > 1
         cdt = model.compute_dtype
         g = torch.Generator(device=dev).manual_seed(5)
         b, s = first.shape
-        x, h = (torch.randn((b, s, cfg.d_model), generator=g, device=dev)
-                .to(cdt).requires_grad_() for _ in range(2))
-        cot = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
-        cot_l = torch.randn((b, s, cfg.vocab_size), generator=g, device=dev)
         pos = torch.arange(s, device=dev)[None].expand(b, s)
-        blk = model.layers[0]
-        y = blk(x, pos, None, None, None, None, False, on, env)[0]
-        (y.float() * cot).sum().backward()
-        res = {"block_out": y.detach().float(), "block_dx": x.grad.float()}
-        res.update((f"layers.0.{n}", q.grad.float())
-                   for n, q in blk.named_parameters())
-        emb = model.embed["embedding"]
-        if on is not None and on.size > 1:
-            e, table = transformer._embed_tp(first, emb, cdt, on, env)
-            logits = model._logits_tp(h, table, on, env)
-        else:
-            e = torch.nn.functional.embedding(first, emb).to(cdt)
-            logits = torch.matmul(h, emb.to(cdt).T)
-        ((e.float() * cot).sum() + (logits.float() * cot_l).sum()).backward()
-        res.update({"embed": e.detach().float(), "logits": logits.detach()
-                    .float(), "embed.embedding": emb.grad.float(),
-                    "logits_dh": h.grad.float()})
+        res = {}
+        for i in q["taught"]:
+            blk = model.layers[i]
+            x = (torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+                 .to(cdt).requires_grad_())
+            cot = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+            mem = None
+            if blk.kind == "cross_attn":
+                mem = torch.randn((b, q["memory_len"], cfg.d_model),
+                                  generator=g, device=dev).to(cdt)
+                if split:
+                    mem = transformer._Rows(b, on, env).take(mem)
+            if groups > 1:
+                n = b // groups
+                y = torch.cat([blk(
+                    x[j:j + n], pos[j:j + n], None, None, None,
+                    None if mem is None else mem[j:j + n], False)[0]
+                    for j in range(0, b, n)])
+            else:
+                y = blk(x, pos, None, None, None, mem, False, on, env)[0]
+            (y.float() * cot).sum().backward()
+            res.update({f"layers.{i}.out": y.detach().float(),
+                        f"layers.{i}.dx": x.grad.float()})
+            res.update((f"layers.{i}.{n}", t.grad.float())
+                       for n, t in blk.named_parameters())
+        if q.get("embed"):
+            x, h = (torch.randn((b, s, cfg.d_model), generator=g,
+                                device=dev).to(cdt).requires_grad_()
+                    for _ in range(2))
+            cot = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+            cot_l = torch.randn((b, s, cfg.vocab_size), generator=g,
+                                device=dev)
+            emb = model.embed["embedding"]
+            if split:
+                e, table = transformer._embed_tp(first, emb, cdt, on, env)
+                logits = model._logits_tp(h, table, on, env)
+            else:
+                e = torch.nn.functional.embedding(first, emb).to(cdt)
+                logits = torch.matmul(h, emb.to(cdt).T)
+            ((e.float() * cot).sum()
+             + (logits.float() * cot_l).sum()).backward()
+            res.update({"embed": e.detach().float(),
+                        "logits": logits.detach().float(),
+                        "embed.embedding": emb.grad.float(),
+                        "logits_dh": h.grad.float()})
         model.zero_grad(set_to_none=True)
         return res
+
+    def grouped_logits(model, groups):
+        """World 1's logits of ``first`` run on ``groups`` groups of its
+        rows in turn (the witness of a mesh that splits the batch so many
+        ways)."""
+        n = first.shape[0] // groups
+        with torch.no_grad():
+            return torch.cat([model(
+                first[j:j + n],
+                memory=None if memory is None else memory[j:j + n])[0]
+                .float() for j in range(0, first.shape[0], n)])
 
     def teacher_apart(got, want, on):
         """||got - want|| / ||want|| of each, a parameter's gradient
@@ -4511,15 +4807,7 @@ def _dense_tp_rank(mesh, dev, p):
                            / w.double().norm())
         return out
 
-    def run(on, keep=None, nudge=None):
-        """On ``on`` (None: world 1), drawn rank by rank, with ``nudge``
-        (a seed) every weight first moved one ulp up or down: ``teacher``,
-        the logits of ``first``, and two steps.  Without ``keep`` the
-        teacher's results, the logits and ``m`` after each step are
-        returned; with it (world 1's) the distances from them are
-        recorded."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    def draw(on):
         model = None
         for r in range(mesh.size if on is not None else 0):
             if r == mesh.rank:
@@ -4531,26 +4819,49 @@ def _dense_tp_rank(mesh, dev, p):
         if on is None:
             model = transformer.init_params(
                 cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        with torch.no_grad():
+            for blk in model.layers:
+                if blk.kind == "cross_attn":
+                    blk.attn.gate.fill_(0.5)
+        return model
+
+    def run(on, keep=None, nudge=None):
+        """On ``on`` (None: world 1), with ``nudge`` (a seed) every weight
+        first moved one ulp up or down: ``teacher``, the logits of
+        ``first``, and the steps.  Without ``keep`` the teacher's
+        results, the logits and ``m`` after each step are returned; with
+        it (world 1's) the distances from them are recorded."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = draw(on)
         if nudge is not None:
             nudge_(model.parameters(), nudge)
         row = {"metrics": [], "step_ms": [], "m_tree": [], "m_matrix": []}
-        taught = teacher(model, on)
-        with torch.no_grad():
-            logits = model(first, mesh=on)[0].float()
-        if keep is None:
-            kept = {"teacher": taught, "logits": logits, "m": []}
-        else:
-            kept = None
-            row["teacher"] = teacher_apart(taught, keep["teacher"], on)
-            want = keep["logits"]
-            row["logits_err"] = float((logits - want).abs().max()
-                                      / want.abs().max())
-        del logits, taught
-        opt = adamw.init_opt_state(dict(model.named_parameters()))
-        step = steps.make_train_step(cfg, tcfg, mesh=on)
         ledger = (on or mesh).axis_ledger
         ledger.reset()
-        for i, batch in enumerate(batches):
+        taught = teacher(model, on)
+        with torch.no_grad():
+            logits = model(first, memory=memory, mesh=on)[0].float()
+        if keep is None:
+            kept = {"teacher": {1: taught}, "logits": {1: logits}, "m": []}
+            for k in {row_groups(m) for m in meshes.values()} - {1}:
+                kept["teacher"][k] = teacher(model, None, k)
+                kept["logits"][k] = grouped_logits(model, k)
+        else:
+            kept = None
+            k = row_groups(on)
+            row["teacher"] = teacher_apart(taught, keep["teacher"][k], on)
+            row["logits_err"], row["logits_vs_plain"] = (
+                float((logits - want).abs().max() / want.abs().max())
+                for want in (keep["logits"][k], keep["logits"][1]))
+        del logits, taught
+        row["forward_collectives"] = ledger.summary()
+        opt = step = None
+        if train:
+            opt = adamw.init_opt_state(dict(model.named_parameters()))
+            step = steps.make_train_step(cfg, tcfg, mesh=on)
+        ledger.reset()
+        for i, batch in enumerate(batches if train else ()):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             opt, met = step(model, opt, batch)
@@ -4584,6 +4895,7 @@ def _dense_tp_rank(mesh, dev, p):
         torch.cuda.empty_cache()
         return row, kept
 
+    out = {"full": {}}
     kept = None
     for r in range(mesh.size):
         if r == mesh.rank:

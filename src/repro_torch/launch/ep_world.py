@@ -56,10 +56,10 @@ def _np(t):
 
 
 def _cfg(p: dict):
-    """The payload's smoke config of ``arch`` with its ``dtype`` and
-    ``capacity_factor`` overrides."""
+    """The payload's smoke config of ``arch`` with its ``overrides`` (a
+    dict of config fields), ``dtype`` and ``capacity_factor``."""
     from repro_torch.configs import get_smoke
-    cfg = get_smoke(p["arch"])
+    cfg = dataclasses.replace(get_smoke(p["arch"]), **p.get("overrides", {}))
     if p.get("dtype"):
         cfg = dataclasses.replace(cfg, dtype=p["dtype"])
     if p.get("capacity_factor"):
@@ -194,7 +194,20 @@ def _draw(cfg, mesh, dev, p: dict):
     the CPU and this rank's blocks kept, or this rank's blocks of the
     whole ``tree`` (numpy, the reference's layout); with ``nudge`` (a
     seed) that tree, or the whole drawn one, first ``nudge_``d in the
-    reference's leaf order (keys sorted)."""
+    reference's leaf order (keys sorted); with ``gate`` every cross
+    layer's gate then set to it (0 at init, where a cross layer adds
+    nothing)."""
+    model = _draw_blocks(cfg, mesh, dev, p)
+    if p.get("gate") is not None:
+        import torch
+        with torch.no_grad():
+            for blk in model.layers:
+                if blk.kind == "cross_attn":
+                    blk.attn.gate.fill_(p["gate"])
+    return model
+
+
+def _draw_blocks(cfg, mesh, dev, p: dict):
     import torch
     from repro_torch.convert import model_tree_to_numpy
     from repro_torch.distributed.mesh import shard_leaf
@@ -229,6 +242,8 @@ def _job_model(mesh, dev, p: dict) -> dict:
     slots, then each column of ``decode`` (B, n) decoded in turn
     (teacher-forced).  ``train`` {tokens, labels}: one ``make_train_step``
     step after (AdamW at ``TrainConfig()``, or ``tcfg``'s overrides).
+    ``memory`` (B, M, F), where given, feeds the cross layers of the
+    forward, the prefill and the train step.
     Returns the forward's logits, the prefill's last logits, every decode
     step's, the MoE layers' router ids and dropped choices a call (prefill
     calls first), the cache after the last step, the collective ledger of
@@ -248,10 +263,13 @@ def _job_model(mesh, dev, p: dict) -> dict:
     named = {n: t.detach() for n, t in model.named_parameters()}
     row = {"blocks": {"/".join(path): list(t.shape) for path, t in
                       tree_leaves(transformer.tree_from_weights(cfg, named))}}
+    memory = (None if p.get("memory") is None
+              else torch.as_tensor(p["memory"]).to(dev))
     if p.get("forward") is not None:
         with torch.no_grad():
             row["forward"] = _np(model(torch.as_tensor(p["forward"]).to(dev),
-                                       use_ep=True, mesh=on)[0])
+                                       memory=memory, use_ep=True,
+                                       mesh=on)[0])
     calls = []
     hooks = [b.ffn.register_forward_hook(lambda mod, i, o: calls.append(
         (mod.stats["ids"].cpu().numpy(), int(mod.stats["dropped"]))))
@@ -262,7 +280,7 @@ def _job_model(mesh, dev, p: dict) -> dict:
         b, s = prompt.shape
         prefill = steps.make_prefill_step(cfg, p.get("capacity", s + 16),
                                           use_ep=True, mesh=on)
-        state, last = prefill(model, prompt)
+        state, last = prefill(model, prompt, memory=memory)
         row.update(prefill_calls=len(calls), prefill=_np(last))
         decode = steps.make_decode_step(cfg, use_ep=True, mesh=on)
         toks = torch.as_tensor(p.get("decode", np.zeros((b, 0), np.int64))
@@ -286,6 +304,8 @@ def _job_model(mesh, dev, p: dict) -> dict:
         opt = adamw.init_opt_state(dict(model.named_parameters()))
         step = steps.make_train_step(cfg, tcfg, use_ep=True, mesh=on)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in p["train"].items()}
+        if memory is not None:
+            batch["memory"] = memory
         mesh.axis_ledger.reset()
         opt, met = step(model, opt, batch)
         row["train_ledger"] = mesh.axis_ledger.summary()

@@ -21,7 +21,8 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.models.layers import (ParamDef, ParamTree, rms_norm,
-                                       row_parallel_sum, whole_leaves)
+                                       row_parallel_sum, use_block,
+                                       whole_leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -154,9 +155,8 @@ def gqa_attention_tp(params, x, positions, cfg: ModelConfig, mesh, env,
     map ``h // g`` is the whole model's because ``tp`` divides the KV
     heads; the partial products of ``wo`` are summed over ``tp``
     (``row_parallel_sum``, the partial products in f32)."""
-    w = {n: coll.gather(params[n].to(compute_dtype), mesh, env.fsdp,
-                        2 if n == "wo" else 0, "fsdp")
-         for n in ("wq", "wk", "wv", "wo")}
+    w = {n: use_block(params[n], d, mesh, env, compute_dtype, ("tp",))
+         for n, d in gqa_defs(cfg).items()}
     out, _ = _gqa_heads(w, x, positions, cfg, None, compute_dtype,
                         valid_from)
     part = torch.einsum("bshk,hkd->bsd", out.float(), w["wo"].float())
@@ -238,6 +238,58 @@ def _mla_q(params, x, cfg: ModelConfig, compute_dtype):
     return torch.einsum("bsd,dhk->bshk", x, params["wq"].to(compute_dtype))
 
 
+def _mla_heads(params, q, ckv, kr, cfg: ModelConfig, compute_dtype,
+               q_offset: int, absorb: bool, valid_from):
+    """MLA from the queries q (B, S, H, qd), rope applied to their rope
+    part, the normalised latent ``ckv`` (B, T, R) and the rotated rope key
+    ``kr`` (B, T, Dr) to the heads' outputs (B, S, H, v), over the heads
+    of ``w_uk`` / ``w_uv`` (R, H, .)."""
+    m = cfg.mla
+    b, s, h = q.shape[:3]
+    t = ckv.shape[1]
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    sdt = getattr(torch, cfg.attn_scores_dtype)
+    w_uk = params["w_uk"].to(compute_dtype)
+    w_uv = params["w_uv"].to(compute_dtype)
+    if absorb:
+        # fold W_uk into q: q_lat (B,S,H,R); scores = q_lat . ckv + q_rope . kr
+        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
+        s_nope = torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope.float(), kr.float())
+        scores = (s_nope + s_rope) * scale
+        qpos = torch.arange(s, device=q.device) + q_offset
+        kpos = torch.arange(t, device=q.device)
+        mask = (kpos[None, :] <= qpos[:, None])[None]            # (1, S, T)
+        if valid_from is not None:
+            mask = mask & (kpos[None, None, :] >= valid_from[:, None, None])
+        scores = scores.masked_fill(~mask[:, None], -1e30)
+        probs = torch.softmax(scores, dim=-1).to(sdt)
+        # out = probs @ V = probs @ (ckv W_uv): the combine in the latent too
+        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv.to(sdt))
+        return torch.einsum("bshr,rhv->bshv", o_lat.to(compute_dtype), w_uv)
+    # with a cache ckv and kr are its bf16: promote as JAX does
+    dt = torch.promote_types(ckv.dtype, compute_dtype)
+    k_nope = torch.einsum("btr,rhk->bthk", ckv.to(dt), w_uk.to(dt))
+    v = torch.einsum("btr,rhv->bthv", ckv.to(dt), w_uv.to(dt))
+    k = torch.cat([k_nope, kr[:, :, None, :].to(dt).expand(
+        b, t, h, m.qk_rope_head_dim)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    return _sdpa(qf, k, v, causal=True, q_offset=q_offset,
+                 valid_from=valid_from, scores_dtype=sdt)
+
+
+def _rope_q(q, positions, cfg: ModelConfig):
+    """q (B, S, H, qd) with RoPE applied to its rope part."""
+    n = cfg.mla.qk_nope_head_dim
+    return torch.cat([q[..., :n], apply_rope(q[..., n:], positions,
+                                             cfg.rope_theta)], dim=-1)
+
+
+def _rope_k(kr, positions, cfg: ModelConfig):
+    return apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+
 def mla_attention(params, x, positions, cfg: ModelConfig,
                   cache: Optional[dict] = None, compute_dtype=torch.bfloat16,
                   absorb: bool = True, valid_from=None):
@@ -249,17 +301,13 @@ def mla_attention(params, x, positions, cfg: ModelConfig,
     (W_uk folded into q, W_uv applied after the latent combine; the
     block's path); absorb=False materializes K and V per head (the paper's
     form).  Returns (out, new_cache)."""
-    m = cfg.mla
-    b, s, _ = x.shape
-    q = _mla_q(params, x, cfg, compute_dtype)                    # (B,S,H,qd)
-    q_nope = q[..., :m.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
-
+    s = x.shape[1]
+    q = _rope_q(_mla_q(params, x, cfg, compute_dtype), positions, cfg)
     ckv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"].to(compute_dtype))
     ckv = rms_norm(ckv, params["kv_norm"], cfg.norm_eps)
-    kr = torch.einsum("bsd,dk->bsk", x, params["w_kr"].to(compute_dtype))
-    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
-
+    kr = _rope_k(torch.einsum("bsd,dk->bsk", x,
+                              params["w_kr"].to(compute_dtype)),
+                 positions, cfg)
     new_cache = None
     q_offset = 0
     if cache is not None:
@@ -271,42 +319,52 @@ def mla_attention(params, x, positions, cfg: ModelConfig,
         c_kr[:, idx:idx + s] = kr.to(c_kr.dtype)
         ckv, kr, q_offset = c_kv, c_kr, idx
         new_cache = {"ckv": c_kv, "kr": c_kr, "index": idx + s}
-    t = ckv.shape[1]
-
-    sdt = getattr(torch, cfg.attn_scores_dtype)
-    w_uk = params["w_uk"].to(compute_dtype)
-    w_uv = params["w_uv"].to(compute_dtype)
-    if absorb:
-        # fold W_uk into q: q_lat (B,S,H,R); scores = q_lat . ckv + q_rope . kr
-        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
-        s_nope = torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
-        s_rope = torch.einsum("bshk,btk->bhst", q_rope.float(), kr.float())
-        scores = (s_nope + s_rope) * scale
-        qpos = torch.arange(s, device=x.device) + q_offset
-        kpos = torch.arange(t, device=x.device)
-        mask = (kpos[None, :] <= qpos[:, None])[None]            # (1, S, T)
-        if valid_from is not None:
-            mask = mask & (kpos[None, None, :] >= valid_from[:, None, None])
-        scores = scores.masked_fill(~mask[:, None], -1e30)
-        probs = torch.softmax(scores, dim=-1).to(sdt)
-        # out = probs @ V = probs @ (ckv W_uv): the combine in the latent too
-        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv.to(sdt))
-        out = torch.einsum("bshr,rhv->bshv", o_lat.to(compute_dtype), w_uv)
-    else:
-        # with a cache ckv and kr are its bf16: promote as JAX does
-        dt = torch.promote_types(ckv.dtype, compute_dtype)
-        k_nope = torch.einsum("btr,rhk->bthk", ckv.to(dt), w_uk.to(dt))
-        v = torch.einsum("btr,rhv->bthv", ckv.to(dt), w_uv.to(dt))
-        k = torch.cat([k_nope, kr[:, :, None, :].to(dt).expand(
-            b, t, cfg.num_heads, m.qk_rope_head_dim)], dim=-1)
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        out = _sdpa(qf, k, v, causal=True, q_offset=q_offset,
-                    valid_from=valid_from, scores_dtype=sdt)
+    out = _mla_heads(params, q, ckv, kr, cfg, compute_dtype, q_offset,
+                     absorb, valid_from)
     wo = params["wo"].to(compute_dtype)
     dt = torch.promote_types(out.dtype, wo.dtype)
     out = torch.einsum("bshv,hvd->bsd", out.to(dt), wo.to(dt))
     return out, new_cache
+
+
+def mla_attention_tp(params, x, positions, cfg: ModelConfig, mesh, env,
+                     compute_dtype=torch.bfloat16, valid_from=None):
+    """``mla_attention`` (absorb=True, no cache) on this rank's blocks
+    over a model mesh, the body of the train cell's sharded MLA: ``x``
+    (B_l, S, d) this rank's rows with d whole, ``positions`` and
+    ``valid_from`` theirs.  The heads run over ``tp``: ``w_uq`` / ``w_uk``
+    / ``w_uv`` (R, H / tp, .) and ``wq`` (d, H / tp, qd) are this rank's
+    heads, and the partial products of ``wo`` (H / tp, v, d) are summed
+    over ``tp`` (``row_parallel_sum``).  The latent projections ``w_dkv``
+    / ``w_dq`` (d, R / tp) give this rank's columns of the latent, which
+    are gathered over ``tp`` into the whole (B_l, S, R) that ``kv_norm``
+    / ``q_norm`` normalise and every head reads: at the train cell's
+    shapes that activation is smaller than the weights' ``tp`` dim, and
+    its gather's backward (a reduce-scatter) sums the heads' cotangents.
+    ``w_kr`` is gathered over ``fsdp``; every ``fsdp`` dim is gathered in
+    the compute dtype; the norms are whole on every rank."""
+    cdt, defs = compute_dtype, mla_defs(cfg)
+
+    def w(name, dtype=cdt):
+        return use_block(params[name], defs[name], mesh, env, dtype, ("tp",))
+
+    def latent(proj, norm):
+        part = torch.einsum("bsd,dr->bsr", x, w(proj))
+        whole = coll.gather(part, mesh, env.tp, 2, "tp")
+        return rms_norm(whole, w(norm, params[norm].dtype), cfg.norm_eps)
+
+    if cfg.mla.q_lora_rank:
+        q = torch.einsum("bsr,rhk->bshk", latent("w_dq", "q_norm"),
+                         w("w_uq"))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, w("wq"))
+    q = _rope_q(q, positions, cfg)
+    ckv = latent("w_dkv", "kv_norm")
+    kr = _rope_k(torch.einsum("bsd,dk->bsk", x, w("w_kr")), positions, cfg)
+    heads = {"w_uk": w("w_uk"), "w_uv": w("w_uv")}
+    out = _mla_heads(heads, q, ckv, kr, cfg, cdt, 0, True, valid_from)
+    part = torch.einsum("bshv,hvd->bsd", out.float(), w("wo").float())
+    return row_parallel_sum(part, mesh, env, cdt)
 
 
 def mla_cache_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
@@ -322,7 +380,11 @@ def mla_cache_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
 class MLAAttention(torch.nn.Module):
     """``mla_attention`` (absorb=True, as the reference's block calls it)
     over parameters named and shaped as the reference's MLA ``attn``
-    subtree (``kv_norm`` and ``q_norm`` plain 1-D parameters)."""
+    subtree (``kv_norm`` and ``q_norm`` plain 1-D parameters).  Over a
+    model mesh they hold this rank's ``param_specs`` blocks: ``forward``
+    with the ``mesh`` gathers the sharded ones whole (a call with a
+    cache), and ``forward_tp`` runs this rank's heads
+    (``mla_attention_tp``)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict,
                  compute_dtype: torch.dtype):
@@ -333,10 +395,18 @@ class MLAAttention(torch.nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
 
-    def forward(self, x, positions, cache=None, valid_from=None):
-        params = {n: getattr(self, n) for n in self.names}
+    def params(self) -> dict:
+        return {n: getattr(self, n) for n in self.names}
+
+    def forward(self, x, positions, cache=None, valid_from=None, mesh=None):
+        params = (self.params() if mesh is None else whole_leaves(
+            self, mla_defs(self.cfg), mesh, self.compute_dtype))
         return mla_attention(params, x, positions, self.cfg, cache,
                              self.compute_dtype, valid_from=valid_from)
+
+    def forward_tp(self, x, positions, mesh, env, valid_from=None):
+        return mla_attention_tp(self.params(), x, positions, self.cfg, mesh,
+                                env, self.compute_dtype, valid_from)
 
 
 # ---------------------------------------------------------------------------
@@ -360,18 +430,47 @@ def cross_attention(params, x, memory, cfg: ModelConfig,
     """Non-causal GQA of x (B, S, D) over ``memory`` (B, M, D), the
     precomputed patch or frame embeddings; the output scaled by
     tanh(gate), the gate read in f32."""
-    mem = memory.to(compute_dtype)
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(compute_dtype))
-    k = torch.einsum("bmd,dhk->bmhk", mem, params["wk"].to(compute_dtype))
-    v = torch.einsum("bmd,dhk->bmhk", mem, params["wv"].to(compute_dtype))
-    out = _sdpa(q, k, v, causal=False, q_offset=0)
+    out = _cross_heads(params, x, memory, compute_dtype)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(compute_dtype))
     return torch.tanh(params["gate"].float()).to(out.dtype) * out
 
 
+def _cross_heads(params, x, memory, compute_dtype):
+    mem = memory.to(compute_dtype)
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(compute_dtype))
+    k = torch.einsum("bmd,dhk->bmhk", mem, params["wk"].to(compute_dtype))
+    v = torch.einsum("bmd,dhk->bmhk", mem, params["wv"].to(compute_dtype))
+    return _sdpa(q, k, v, causal=False, q_offset=0)
+
+
+def cross_attention_tp(params, x, memory, cfg: ModelConfig, mesh, env,
+                       compute_dtype=torch.bfloat16):
+    """``cross_attention`` on this rank's blocks over a model mesh, the
+    body of the train cell's sharded cross layer: ``gqa_attention_tp``'s
+    heads over ``tp`` (``wq`` / ``wk`` / ``wv`` / ``wo`` with ``fsdp``
+    gathered, the partial products of ``wo`` summed over ``tp``), its
+    keys and values from ``memory`` (B_l, M, d), this rank's rows of it
+    as ``x`` (B_l, S, d) holds its rows, and no mask.  ``tanh(gate)``
+    scales the sum after it is rounded to the compute dtype, the
+    reference's order; the 0-d ``gate`` is whole on every rank."""
+    defs = cross_attn_defs(cfg)
+    w = {n: use_block(params[n], defs[n], mesh, env, compute_dtype, ("tp",))
+         for n in ("wq", "wk", "wv", "wo")}
+    out = _cross_heads(w, x, memory, compute_dtype)
+    part = torch.einsum("bshk,hkd->bsd", out.float(), w["wo"].float())
+    out = row_parallel_sum(part, mesh, env, compute_dtype)
+    gate = use_block(params["gate"], defs["gate"], mesh, env,
+                     params["gate"].dtype)
+    return torch.tanh(gate.float()).to(out.dtype) * out
+
+
 class CrossAttention(torch.nn.Module):
     """``cross_attention`` over parameters named and shaped as the
-    reference's cross ``attn`` subtree (``gate`` a 0-d parameter)."""
+    reference's cross ``attn`` subtree (``gate`` a 0-d parameter).  Over a
+    model mesh they hold this rank's ``param_specs`` blocks: ``forward``
+    with the ``mesh`` gathers the projections whole (a call with a
+    state), and ``forward_tp`` runs this rank's heads
+    (``cross_attention_tp``)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict,
                  compute_dtype: torch.dtype):
@@ -381,7 +480,15 @@ class CrossAttention(torch.nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
 
-    def forward(self, x, memory):
-        params = {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo,
-                  "gate": self.gate}
+    def params(self) -> dict:
+        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo,
+                "gate": self.gate}
+
+    def forward(self, x, memory, mesh=None):
+        params = (self.params() if mesh is None else whole_leaves(
+            self, cross_attn_defs(self.cfg), mesh, self.compute_dtype))
         return cross_attention(params, x, memory, self.cfg, self.compute_dtype)
+
+    def forward_tp(self, x, memory, mesh, env):
+        return cross_attention_tp(self.params(), x, memory, self.cfg, mesh,
+                                  env, self.compute_dtype)

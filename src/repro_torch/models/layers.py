@@ -185,22 +185,34 @@ def swiglu_tp(x: torch.Tensor, w_gate, w_up, w_down, compute_dtype, mesh,
     rank), the rank computes its chunk of d_ff, and the partial products
     of ``w_down`` are summed over ``tp`` (``row_parallel_sum``, the
     partials in f32)."""
-    fs, cdt = env.fsdp, compute_dtype
-    h = _swiglu_hidden(x, coll.gather(w_gate.to(cdt), mesh, fs, 0, "fsdp"),
-                       coll.gather(w_up.to(cdt), mesh, fs, 0, "fsdp"), cdt)
-    w_down = coll.gather(w_down.to(cdt), mesh, fs, 1, "fsdp")
+    defs = dense_ffn_defs(1, 1)      # the leaves' logical dims
+    w_gate, w_up, w_down = (
+        use_block(w, defs[n], mesh, env, compute_dtype, ("tp",))
+        for n, w in (("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)))
+    h = _swiglu_hidden(x, w_gate, w_up, compute_dtype)
     part = torch.einsum("...f,fd->...d", h.float(), w_down.float())
-    return row_parallel_sum(part, mesh, env, cdt)
+    return row_parallel_sum(part, mesh, env, compute_dtype)
+
+
+def read_dtype(module: nn.Module, name: str, compute_dtype) -> torch.dtype:
+    """The dtype the forward reads ``module``'s leaf ``name`` in: the
+    compute dtype for a weight of two or more dims, its own for a 0-d or
+    1-D leaf and for one the module names in ``keep_f32`` (sLSTM's
+    recurrence, the MoE router), which it reads in f32."""
+    p = getattr(module, name)
+    keep = getattr(module, "keep_f32", ())
+    return p.dtype if p.dim() < 2 or name in keep else compute_dtype
 
 
 def whole_leaves(module: nn.Module, defs: dict, mesh, compute_dtype) -> dict:
     """The leaves of ``module`` that ``defs`` names, each whole in the
-    compute dtype: gathered from every rank's block (its ``param_specs``
-    spec on ``mesh``; a gather is exact).  A call with a state (a prefill,
-    a decode step) computes on these, as a world of one does.  Each is
-    kept on the module until its block changes (another tensor, or an
-    in-place update), so the decode steps of a model gather once: the
-    gathers go through the host on the card."""
+    dtype the forward reads it in (``read_dtype``): gathered from every
+    rank's block (its ``param_specs`` spec on ``mesh``; a gather is
+    exact).  A call with a state (a prefill, a decode step) computes on
+    these, as a world of one does.  Each is kept on the module until its
+    block changes (another tensor, or an in-place update), so the decode
+    steps of a model gather once: the gathers go through the host on the
+    card."""
     env = AxisEnv.from_mesh(mesh)
     kept = module.__dict__.setdefault("_whole", {})
     out = {}
@@ -210,11 +222,30 @@ def whole_leaves(module: nn.Module, defs: dict, mesh, compute_dtype) -> dict:
         hit = kept.get(name)
         if hit is None or hit[0] is not p or hit[1] != key:
             with torch.no_grad():
-                w = unshard_leaf(mesh, p.detach().to(compute_dtype),
-                                 env.resolve(d.logical), "whole")
+                w = p.detach().to(read_dtype(module, name, compute_dtype))
+                w = unshard_leaf(mesh, w, env.resolve(d.logical), "whole")
             hit = kept[name] = (p, key, w)
         out[name] = hit[2]
     return out
+
+
+def use_block(w: torch.Tensor, d: ParamDef, mesh, env, dtype,
+              local: tuple = ()) -> torch.Tensor:
+    """A leaf as this rank's computation reads it over a model mesh of
+    the train cell: ``w`` its block under ``d``'s ``param_specs`` spec,
+    cast to ``dtype``, each sharded dim whose logical name is not in
+    ``local`` gathered whole (the backward, a reduce-scatter, returns each
+    block's share of the gradient to its rank).  The block is first
+    marked replicated over the axes its spec leaves out
+    (``collectives.pvary``): each of those ranks runs other rows of the
+    batch, or other heads, so their gradients are summed."""
+    spec = env.resolve(d.logical)
+    rest = tuple(a for a in mesh.axis_names if a not in spec.all_axes())
+    w = coll.pvary(w, mesh, rest, "replicas").to(dtype)
+    for dim, name in enumerate(d.logical):
+        if name is not None and name not in local and spec.axes(dim):
+            w = coll.gather(w, mesh, spec.axes(dim), dim, name)
+    return w
 
 
 def dense_ffn_defs(d_model: int, d_ff: int) -> ParamTree:

@@ -30,7 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.models.layers import ParamDef, ParamTree, rms_norm, silu
+from repro_torch.models.layers import (ParamDef, ParamTree, read_dtype,
+                                       rms_norm, silu, use_block,
+                                       whole_leaves)
 
 
 def _state_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -450,7 +452,21 @@ def slstm_state_defs(cfg: ModelConfig, batch: int) -> dict:
 class _Mixer(nn.Module):
     """A block's ``mixer``: its forward over parameters named as the
     reference's leaves.  forward(x, state=None, valid=None) -> (out, new
-    state)."""
+    state).
+
+    Over a model mesh the leaves hold this rank's ``param_specs`` blocks.
+    No split of a mixer's work follows them: Mamba2's ``tp`` block of
+    ``in_proj`` cuts across the packed z | x | B | C | dt and its gated
+    norm runs over the whole d_in; mLSTM's ``w_up`` block is the x or the
+    z half, its norm over the whole d_in; sLSTM's ``tp`` dim is the head
+    dim its recurrence mixes at every step.  So every leaf is gathered
+    whole for a call: ``forward`` with the ``mesh`` (a call with a state)
+    gathers once and keeps them (``whole_leaves``); ``forward_rows`` (no
+    state) gathers them in each call, the backward returning each block's
+    gradient to its rank, and runs the mixer on this rank's rows of the
+    batch.  Each leaf is gathered in the dtype the forward reads it in
+    (``layers.read_dtype``): the values it computes with are a world of
+    one's."""
 
     defs = staticmethod(mamba2_defs)
     fn = staticmethod(mamba2_forward)
@@ -464,10 +480,19 @@ class _Mixer(nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
 
-    def forward(self, x, state=None, valid=None):
-        params = {n: getattr(self, n) for n in self.names}
+    def forward(self, x, state=None, valid=None, mesh=None):
+        params = ({n: getattr(self, n) for n in self.names} if mesh is None
+                  else whole_leaves(self, self.defs(self.cfg), mesh,
+                                    self.compute_dtype))
         return self.fn(params, x, self.cfg, state, self.compute_dtype,
                        valid=valid)
+
+    def forward_rows(self, x, valid, mesh, env):
+        cdt = self.compute_dtype
+        params = {n: use_block(getattr(self, n), d, mesh, env,
+                               read_dtype(self, n, cdt))
+                  for n, d in self.defs(self.cfg).items()}
+        return self.fn(params, x, self.cfg, None, cdt, valid=valid)[0]
 
 
 class Mamba2Mixer(_Mixer):

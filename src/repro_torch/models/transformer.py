@@ -42,7 +42,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     DenseFFN, ParamDef, ParamTree, RMSNorm, abstract_tree, count_tree,
     dense_ffn_defs, embedding_defs, init_tree, rms_norm, softcap, spec_tree,
-    stack_defs, tree_leaves, tree_map, whole_leaves,
+    stack_defs, tree_leaves, tree_map, use_block, whole_leaves,
 )
 
 # the SSM kinds: (parameter defs, state defs, mixer module)
@@ -110,16 +110,19 @@ class Block(nn.Module):
     the reference's ``block_forward``.  An SSM block's state is replaced
     each call, not written in place; a cross block's is passed through.
 
-    Over a model mesh of more than one rank a GQA attention's and a dense
-    FFN's leaves hold their ``param_specs`` blocks (``local_specs``).
-    Without a state each runs as the train cell's ``shard_map`` runs it,
+    Over a model mesh of more than one rank every leaf holds its
+    ``param_specs`` block (an MoE FFN: ``moe.moe_param_specs``).  Without
+    a state the block runs as the train cell's ``shard_map`` runs it,
     written by hand: ``x`` (B, S, d) is whole on every rank between
     blocks; the block takes this rank's rows of the batch (``_Rows``),
-    runs the norm, the attention's heads or the FFN's chunk of d_ff
-    (``forward_tp``) and the residual on them, and gathers them back
-    whole; the norm weights, whole on every rank, sum their cotangents
-    over every axis (``collectives.pvary``).  A call with a state gathers
-    those leaves whole and computes as a world of one."""
+    runs the norm, the attention's heads (GQA, MLA, cross-attention over
+    ``memory``, which then holds this rank's rows) or the mixer (its
+    leaves gathered whole), then the dense FFN's chunk of d_ff
+    (``forward_tp``), and the residuals on them, and gathers them back
+    whole; an MoE FFN runs on the whole ``x`` (``moe_block_sharded``).
+    The norm weights, whole on every rank, sum their cotangents over every
+    axis (``collectives.pvary``).  A call with a state gathers the leaves
+    whole and computes as a world of one."""
 
     def __init__(self, cfg: ModelConfig, kind: str, ffn: str, weights: dict,
                  compute_dtype: torch.dtype):
@@ -150,45 +153,49 @@ class Block(nn.Module):
         model ``mesh`` an MoE FFN runs ``moe_block_sharded`` (the
         reference's EP branch)."""
         sharded = mesh is not None and mesh.size > 1
-        tp_attn = self.kind == BlockKind.ATTN.value
-        tp_ffn = isinstance(self.ffn, DenseFFN)
-        rows = (_Rows(x.shape[0], mesh, env)
-                if sharded and state is None and (tp_attn or tp_ffn)
-                else None)
-        xs = None                   # this rank's rows, while a block runs
+        rows = _Rows(x.shape[0], mesh, env) if sharded and state is None \
+            else None
+        whole = {"mesh": mesh} if sharded else {}
         new_state = state
-        if rows is not None and tp_attn:
+        if rows is not None:
             xs = rows.take(x)
             h = rms_norm(xs, rows.replicated(self.ln1.weight), self.ln1.eps)
-            xs = xs + self.attn.forward_tp(h, rows.index(positions), mesh,
-                                           env, rows.index(valid_from))
+            if self.kind == BlockKind.CROSS_ATTN.value:
+                if memory is None:
+                    memory = xs.new_zeros((xs.shape[0], 1, xs.shape[-1]))
+                h = self.attn.forward_tp(h, memory, mesh, env)
+            elif self.kind in _SSM:
+                h = self.mixer.forward_rows(h, rows.index(valid), mesh, env)
+            else:
+                h = self.attn.forward_tp(h, rows.index(positions), mesh, env,
+                                         rows.index(valid_from))
+            xs = xs + h
         else:
             h = self.ln1(x)
             if self.kind == BlockKind.CROSS_ATTN.value:
                 if memory is None:
                     memory = x.new_zeros((x.shape[0], 1, x.shape[-1]))
-                h = self.attn(h, memory)
+                h = self.attn(h, memory, **whole)
             elif self.kind in _SSM:
-                h, new_state = self.mixer(h, state, valid)
+                h, new_state = self.mixer(h, state, valid, **whole)
             else:
-                whole = {"mesh": mesh} if sharded and tp_attn else {}
                 h, new_state = self.attn(h, positions, state, valid_from,
                                          **whole)
             x = x + h
         aux = None
         if isinstance(self.ffn, moe_lib.MoEFFN):
-            if xs is not None:
-                x, xs = rows.gather(xs), None
+            if rows is not None:
+                x, rows = rows.gather(xs), None
             h, aux = self.ffn(self.ln2(x), use_ep, mesh, env)
             x = x + h
-        elif rows is not None:
-            if xs is None:
-                xs = rows.take(x)
-            h = rms_norm(xs, rows.replicated(self.ln2.weight), self.ln2.eps)
-            xs = xs + self.ffn.forward_tp(h, mesh, env)
         elif self.ffn is not None:
-            x = x + self.ffn(self.ln2(x), mesh if sharded else None)
-        if xs is not None:
+            if rows is not None:
+                h = rms_norm(xs, rows.replicated(self.ln2.weight),
+                             self.ln2.eps)
+                xs = xs + self.ffn.forward_tp(h, mesh, env)
+            else:
+                x = x + self.ffn(self.ln2(x), mesh if sharded else None)
+        if rows is not None:
             x = rows.gather(xs)
         return x, new_state, aux
 
@@ -339,56 +346,46 @@ def abstract_params(cfg: ModelConfig) -> ParamTree:
 
 
 def local_specs(cfg: ModelConfig, env: AxisEnv) -> ParamTree:
-    """The port's layout of the parameters over a model mesh.  The dense
-    GQA leaves take their ``param_specs`` spec, as the reference's train
-    cell places them: a GQA block's ``attn`` (``wq`` / ``wk`` / ``wv``
-    ``(fsdp, tp, None)``, ``wo`` ``(tp, None, fsdp)``), a dense ``ffn``
-    (``w_gate`` / ``w_up`` ``(fsdp, tp)``, ``w_down`` ``(tp, fsdp)``), the
-    embedding ``(tp, fsdp)`` and the unembedding ``(fsdp, tp)``.  The
-    leaves of each MoE ``ffn`` subtree are as ``moe_block_sharded`` takes
-    them (``moe.moe_param_specs``: experts over ``model`` and ``fsdp``,
-    shared experts over ``fsdp``).  A scanned leaf keeps its leading axis
-    whole.  Every other leaf is whole (``Spec`` of ``None``): the norms,
-    MLA, cross-attention, the SSM mixers, the frontend and memory
-    projections."""
-    defs, segs = model_defs(cfg), plan_segments(cfg)
-    specs = tree_map(lambda d: Spec(*([None] * len(d.shape))), defs)
-
-    def param(d):
-        return env.resolve(d.logical)
-
-    gqa = BlockKind.ATTN.value
-    specs["embed"] = tree_map(param, defs["embed"])
-    if "unembed" in defs:
-        specs["unembed"] = param(defs["unembed"])
-    moe_spec = (moe_lib.moe_param_specs(env, cfg.moe.num_shared_experts > 0)
-                if cfg.moe is not None else None)
+    """The port's layout of the parameters over a model mesh: every leaf's
+    ``param_specs`` spec, as the reference's train cell places it, except
+    the leaves of each MoE ``ffn`` subtree, which are as
+    ``moe_block_sharded`` takes them (``moe.moe_param_specs``: experts
+    over ``model`` and ``fsdp``, shared experts over ``fsdp``; a scanned
+    leaf keeps its leading axis whole)."""
+    specs, segs = param_specs(cfg, env), plan_segments(cfg)
+    if cfg.moe is None:
+        return specs
+    moe_spec = moe_lib.moe_param_specs(env, cfg.moe.num_shared_experts > 0)
     for seg, kinds in (("prefix", segs.prefix), ("scanned", segs.period)):
-        for i, (kind, _) in enumerate(kinds):
-            blk, out = defs[seg][str(i)], specs[seg][str(i)]
-            if kind == gqa:
-                out["attn"] = tree_map(param, blk["attn"])
-            if "router" in blk.get("ffn", {}):
-                lead = (None,) if seg == "scanned" else ()
-                out["ffn"] = tree_map(lambda sp: Spec(*lead, *sp), moe_spec)
-            elif "ffn" in blk:
-                out["ffn"] = tree_map(param, blk["ffn"])
+        lead = (None,) if seg == "scanned" else ()
+        for i, (_, ffn) in enumerate(kinds):
+            if ffn == FFNKind.MOE.value:
+                specs[seg][str(i)]["ffn"] = tree_map(
+                    lambda sp: Spec(*lead, *sp), moe_spec)
     return specs
 
 
 def mesh_specs(cfg: ModelConfig, mesh) -> ParamTree:
-    """``local_specs`` on ``mesh``.  A config with GQA blocks whose query
-    or KV heads the ``tp`` axes do not divide raises ``ValueError``: it
-    needs its heads padded (``tp_pad_config``, not ported)."""
-    env = AxisEnv.from_mesh(mesh)
-    if any(k == BlockKind.ATTN.value for k, _ in plan_segments(cfg).layers):
-        tp = axis_size(mesh, env.tp)
-        if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-            raise ValueError(
-                f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} "
-                f"KV heads do not split over tp {tp}; pad them with "
-                f"tp_pad_config (not ported yet)")
-    return local_specs(cfg, env)
+    """``local_specs`` on ``mesh``.  A leaf whose sharded dim the mesh
+    does not divide raises ``ValueError`` naming the leaf, its shape, its
+    spec and the mesh: the attention heads (GQA's query and KV heads,
+    MLA's and cross-attention's) must split evenly over ``tp``, which
+    takes their padding (``tp_pad_config``, not ported yet)."""
+    specs = local_specs(cfg, AxisEnv.from_mesh(mesh))
+    spec_of = dict(tree_leaves(specs))
+    for path, d in tree_leaves(model_defs(cfg)):
+        sp = spec_of[path]
+        for dim, n in enumerate(d.shape):
+            ways = axis_size(mesh, sp.axes(dim))
+            if n % ways:
+                raise ValueError(
+                    f"{cfg.name}: leaf {'/'.join(path)} of shape "
+                    f"{tuple(d.shape)} and spec {tuple(sp)} does not split "
+                    f"on the mesh {dict(mesh.shape)}: dim {dim} of {n} over "
+                    f"{sp.axes(dim)} ({ways} ways); a config whose heads "
+                    f"tp does not divide needs them padded with "
+                    f"tp_pad_config (not ported yet)")
+    return specs
 
 
 def _port_name(prefix: str, leaf: tuple) -> str:
@@ -585,17 +582,20 @@ class Transformer(nn.Module):
         block is checkpointed (``_remat``).  ``mesh`` is a model mesh
         (``distributed.mesh.make_mesh``) whose ranks hold the blocks of
         ``local_specs`` (``init_params(mesh=)``).  Over more than one rank
-        and without a state the dense GQA blocks run tensor-parallel on
-        this rank's rows of the batch (``Block``); the embedding looks up
-        the ids of this rank's rows in its vocabulary block (the ``fsdp``
-        dim gathered; an id outside it gives zeros) and sums the rows over
-        ``tp``; the logits are this rank's vocabulary columns of its rows,
-        gathered whole before ``softcap`` (a tied table is gathered once
-        for both uses, so both gradients reach its block).  With a state
-        those leaves are gathered whole and the call computes as a world
-        of one.  The other leaves are whole on every rank, which runs
-        them on the whole batch.  ``use_ep`` runs the MoE FFNs
-        expert-parallel over the mesh (``moe.moe_block_sharded``).
+        and without a state the blocks run on this rank's rows of the
+        batch (``Block``: the attention kinds' heads and the dense FFN
+        tensor-parallel, the mixers gathered whole); the embedding looks
+        up the ids of this rank's rows in its vocabulary block (the
+        ``fsdp`` dim gathered; an id outside it gives zeros) and sums the
+        rows over ``tp``; frontend embeds and the memory go through their
+        projection's block with d gathered, this rank's rows of them (the
+        memory stays in rows for the cross layers); the logits are this
+        rank's vocabulary columns of its rows, gathered whole before
+        ``softcap`` (a tied table is gathered once for both uses, so both
+        gradients reach its block).  With a state every leaf is gathered
+        whole and the call computes as a world of one.  ``use_ep`` runs
+        the MoE FFNs expert-parallel over the mesh
+        (``moe.moe_block_sharded``).
         ``sp_constraint``, when given, is applied to the activations after
         the embedding and after each block, where the reference
         constrains their sharding."""
@@ -610,16 +610,21 @@ class Transformer(nn.Module):
             emb = whole_leaves(self.embed, defs["embed"], mesh,
                                cdt)["embedding"]
         table = None          # this rank's vocabulary block, d gathered
+        rows = _Rows(tokens.shape[0], mesh, env) if split else None
         if tokens.ndim == 3:
-            x = torch.einsum("bsf,fd->bsd", tokens.to(cdt),
-                             self.frontend_proj.to(cdt))
+            x = self._project("frontend_proj", tokens, rows, defs, mesh, env)
+            if rows is not None:
+                x = rows.gather(x)
         elif split:
             x, table = _embed_tp(tokens, emb, cdt, mesh, env)
         else:
             x = nn.functional.embedding(tokens, emb).to(cdt)
         if memory is not None and self.memory_proj is not None:
-            memory = torch.einsum("bmf,fd->bmd", memory.to(cdt),
-                                  self.memory_proj.to(cdt))
+            # split: this rank's rows, as its cross layers read them
+            memory = self._project("memory_proj", memory, rows, defs, mesh,
+                                   env)
+        elif memory is not None and rows is not None:
+            memory = rows.take(memory)
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -659,6 +664,20 @@ class Transformer(nn.Module):
             logits = torch.matmul(x, unembed.to(cdt))
         logits = softcap(logits.float(), self.cfg.logits_softcap)
         return logits, new_state, self._aux_total(auxes, x.device)
+
+    def _project(self, name, embeds, rows, defs, mesh, env):
+        """``embeds`` (B, N, F) through the (F, d) projection ``name``
+        (``frontend_proj``, ``memory_proj``) in the compute dtype.  Over a
+        model mesh with no state this rank's rows of them through its
+        ``(None, fsdp)`` block with d gathered (``layers.use_block``); with
+        a state, the whole leaf (``whole_leaves``)."""
+        cdt, w = self.compute_dtype, getattr(self, name)
+        if rows is not None:
+            embeds = rows.take(embeds)
+            w = use_block(w, model_defs(self.cfg)[name], mesh, env, cdt)
+        elif defs is not None:
+            w = whole_leaves(self, {name: defs[name]}, mesh, cdt)[name]
+        return torch.einsum("bnf,fd->bnd", embeds.to(cdt), w.to(cdt))
 
     def _logits_tp(self, x, table, mesh, env):
         """The whole (B, S, V) logits in the compute dtype from this

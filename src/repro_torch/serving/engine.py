@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import steps
+from repro_torch.models.layers import read_dtype
 
 
 @dataclasses.dataclass
@@ -59,7 +60,7 @@ class ServeEngine:
     same, and the f32 copies would double the weights' memory and each
     decode step's weight reads.  A weight read in f32 is named in its
     module's ``keep_f32`` (the MoE router; sLSTM's recurrence ``r`` and
-    ``b``) and stays as it is."""
+    ``b``) and stays as it is (``layers.read_dtype``)."""
 
     def __init__(self, cfg: ModelConfig, model, *, batch_slots: int = 8,
                  capacity: int = 512):
@@ -71,10 +72,8 @@ class ServeEngine:
         cdt = getattr(torch, cfg.dtype)
         with torch.no_grad():
             for mod in model.modules():
-                keep = getattr(mod, "keep_f32", ())
                 for name, p in mod.named_parameters(recurse=False):
-                    if p.ndim >= 2 and p.dtype != cdt and name not in keep:
-                        p.data = p.data.to(cdt)
+                    p.data = p.data.to(read_dtype(mod, name, cdt))
         self._prefill = steps.make_prefill_step(cfg, capacity)
         self._decode = steps.make_decode_step(cfg)
         self.steps_executed = 0

@@ -196,6 +196,8 @@ class FleetFuture:
 _ADMIT, _GRANT, _END, _STOP, _ABORT = 1, 2, 3, 4, 5
 _KINDS = ("",) + collectives.GROUP_KINDS        # "" for a band step
 _REQ_KINDS = ("query", "append")
+# admissions and grants a world fleet keeps in order for its report
+ORDER_LOG = 256
 
 
 class _WorldOrder:
@@ -256,6 +258,9 @@ class _WorldOrder:
         # or were passed here, and of each group's calls (seq, op, peer)
         self.admissions = [0, 0]
         self.grants = [0, 0]
+        # the first ORDER_LOG of those admissions and grants, in order
+        # (``world_summary``: what a failed comparison of two runs reads)
+        self.order_log: dict = {"admissions": [], "grants": []}
         self.groups: dict = {}
         self.records = 0
         self.batches = 0
@@ -316,14 +321,16 @@ class _WorldOrder:
             self._turn += 1
 
     @staticmethod
-    def _fold(acc: list, rec: tuple) -> None:
+    def _fold(acc: list, rec: tuple, log: list = None) -> None:
         acc[0] += 1
         acc[1] = zlib.crc32(repr(rec).encode(), acc[1])
+        if log is not None and len(log) < ORDER_LOG:
+            log.append(rec)
 
     def _ran(self, g: int, seq: int, call: tuple) -> None:
         """Fold grant ``g`` into the digest (caller holds ``_cond``)."""
         op, kind, peer = call
-        self._fold(self.grants, (g, seq) + call)
+        self._fold(self.grants, (g, seq) + call, self.order_log["grants"])
         if op != "band":
             self._fold(self.groups.setdefault(kind, [0, 0]),
                        (seq, op, peer))
@@ -372,7 +379,8 @@ class _WorldOrder:
     def admit(self, slot: int, req: _Request, tenant_index: int) -> None:
         """Rank 0: publish that worker ``slot`` runs ``req``."""
         with self._cond:
-            self._fold(self.admissions, (slot, req.seq))
+            self._fold(self.admissions, (slot, req.seq),
+                       self.order_log["admissions"])
             self._outbox.append((_ADMIT, slot, req.seq, tenant_index,
                                  _REQ_KINDS.index(req.kind)))
             self._cond.notify_all()
@@ -455,7 +463,8 @@ class _WorldOrder:
                 self.batches += 1
                 for typ, a, b, c, d in recs:
                     if typ == _ADMIT:
-                        self._fold(self.admissions, (a, b))
+                        self._fold(self.admissions, (a, b),
+                                   self.order_log["admissions"])
                         admits.append((a, b, c, _REQ_KINDS[d]))
                     elif typ == _GRANT:
                         err = err or self._granted(a, b, c, d)
@@ -527,6 +536,8 @@ class _WorldOrder:
             return {"grants": self.grants[0], "admissions":
                     self.admissions[0], "control_records": self.records,
                     "control_batches": self.batches,
+                    "admission_order": list(self.order_log["admissions"]),
+                    "grant_order": list(self.order_log["grants"]),
                     "broken": str(self.broken) if self.broken else None}
 
     def rank_digest(self, scheduler: BandScheduler) -> dict:

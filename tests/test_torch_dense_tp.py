@@ -410,13 +410,14 @@ def test_heads_tp_does_not_divide_are_refused(arch):
     """starcoder2's smoke config has one KV head: on a ``tp`` of 2 its
     GQA leaves cannot be split evenly, and ``mesh_specs``,
     ``init_params`` and ``weights_from_tree`` refuse it with a
-    ``ValueError`` that names ``tp_pad_config`` (head padding, not
-    ported), before drawing anything; at ``tp`` 1 it is accepted."""
+    ``ValueError`` that names the first leaf that does not split (``wk``)
+    and ``tp_pad_config`` (head padding, not ported), before drawing
+    anything; at ``tp`` 1 it is accepted."""
     cfg = get_smoke(arch)
     assert cfg.num_kv_heads == 1
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  shape={"data": 1, "model": 2})
-    with pytest.raises(ValueError, match="tp_pad_config"):
+    with pytest.raises(ValueError, match="scanned/0/attn/wk.*tp_pad_config"):
         tr.mesh_specs(cfg, mesh)
     with pytest.raises(ValueError, match="tp_pad_config"):
         tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu",

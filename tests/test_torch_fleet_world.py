@@ -125,6 +125,10 @@ def scenarios(m) -> dict:
         for name, r in res:
             rows.setdefault(name, []).append(_row(r))
         parts = [row["breakdown"] for rs in rows.values() for row in rs]
+        # each tenant's cold plans (queries not served from the plan
+        # library): read only where a comparison fails
+        out.setdefault("concurrent_misses", {})[workers] = {
+            n: sum(not r["plan_hit"] for r in rs) for n, rs in rows.items()}
         runs[workers] = {
             "pairs": {n: [r["pairs"] for r in rs] for n, rs in rows.items()},
             "theta": {n: [r["theta"] for r in rs] for n, rs in rows.items()},
@@ -369,14 +373,22 @@ def test_world_second_tenant_cold_query_is_free(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"{w[0]}-{w[1]}")
 def test_world_concurrent_mixed_cold_warm_matches_serial(runs, world):
+    """Rank 0's concurrent run (3 workers) against its serial run and the
+    reference's serial run.  A failure reports each tenant's cold plans
+    (serial, concurrent) and the concurrent fleet's admission and grant
+    order (``JoinFleet.world_report``)."""
     ref, ranks = _case(runs, world)
     serial, conc = ranks[0]["concurrent"][1], ranks[0]["concurrent"][3]
     want = ref["concurrent"]["1"]
+    order = ranks[0]["reports"][2]["order"]
+    seen = {"tenant_misses": ranks[0]["concurrent_misses"],
+            "admission_order": order["admission_order"],
+            "grant_order": order["grant_order"]}
     for key in ("pairs", "theta", "candidates", "dollars", "misses",
                 "puts"):
         assert serial[key] == want[key], key
-        assert conc[key] == serial[key], key
-    assert conc["misses"] == 1
+        assert conc[key] == serial[key], (key, seen)
+    assert conc["misses"] == 1, seen
     assert conc["completed"] == 6 and conc["failed"] == 0
     assert conc["band_steps"] == serial["band_steps"] == 18
     for r in ranks[1:]:

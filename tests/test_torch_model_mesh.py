@@ -120,13 +120,16 @@ def test_abstract_params_and_state_shapes_and_dtypes(arch):
 
 
 def test_local_specs_shard_dense_gqa_and_moe_leaves():
-    """The port's layout over a mesh: the dense GQA leaves by their
-    ``param_specs`` spec (attention ``wq`` / ``wk`` / ``wv`` ``(fsdp, tp,
-    None)``, ``wo`` ``(tp, None, fsdp)``; dense FFN ``w_gate`` / ``w_up``
-    ``(fsdp, tp)``, ``w_down`` ``(tp, fsdp)``; embedding ``(tp, fsdp)``;
-    unembedding ``(fsdp, tp)``), each MoE ``ffn`` leaf by
-    ``moe_block_sharded``'s spec, a scanned leaf with a whole leading
-    axis; the norms, MLA's leaves and the router whole."""
+    """The port's layout over a mesh: every leaf by its ``param_specs``
+    spec -- the dense GQA leaves (attention ``wq`` / ``wk`` / ``wv``
+    ``(fsdp, tp, None)``, ``wo`` ``(tp, None, fsdp)``; dense FFN
+    ``w_gate`` / ``w_up`` ``(fsdp, tp)``, ``w_down`` ``(tp, fsdp)``;
+    embedding ``(tp, fsdp)``; unembedding ``(fsdp, tp)``) and MLA's
+    (``w_dkv`` / ``w_dq`` ``(fsdp, tp)``, ``w_kr`` ``(fsdp, None)``,
+    ``w_uq`` / ``w_uk`` / ``w_uv`` ``(None, tp, None)``, ``wo`` ``(tp,
+    None, fsdp)``) -- but each MoE ``ffn`` leaf, by
+    ``moe_block_sharded``'s spec; a scanned leaf with a whole leading
+    axis; the norms and the router whole."""
     _, port = _meshes("single")
     env = AxisEnv.from_mesh(port)
     dense = dict(tree_leaves(tr.local_specs(get_config("phi4-mini-3.8b"),
@@ -159,8 +162,16 @@ def test_local_specs_shard_dense_gqa_and_moe_leaves():
     assert sharded[("prefix", "0", "ffn", "w_down")] == ("model", "data")
     assert sharded[("embed", "embedding")] == ("model", "data")
     assert sharded[("unembed",)] == ("data", "model")
-    assert not any("attn" in p or p[-1] == "router" for p in sharded)
-    assert len(sharded) == 6 + 3 + 2
+    mla = {"w_dkv": ("data", "model"), "w_dq": ("data", "model"),
+           "w_kr": ("data", None), "w_uq": (None, "model", None),
+           "w_uk": (None, "model", None), "w_uv": (None, "model", None),
+           "wo": ("model", None, "data")}
+    for leaf, spec in mla.items():
+        assert sharded[("prefix", "0", "attn", leaf)] == spec
+        assert sharded[("scanned", "0", "attn", leaf)] == (None,) + spec
+    assert not any(p[-1] in ("router", "kv_norm", "q_norm") or "ln" in p[-1]
+                   for p in sharded)
+    assert len(sharded) == 6 + 3 + 2 + 2 * len(mla)
 
 
 def test_production_mesh_needs_its_world():
