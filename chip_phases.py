@@ -4,9 +4,11 @@ sub-phases of phase 11 alone, on the card:
     python3 chip_phases.py a d            # (a) EP MoE smoke, (d) dense TP
     python3 chip_phases.py d --layers 2,4 # (d) at each depth in turn
     python3 chip_phases.py e              # (e) MLA, cross, SSM leaves
+    python3 chip_phases.py f              # (f) the decode state's blocks
+    python3 chip_phases.py b              # (b) deepseek-v2 EP decode
 
-(a) is ``Smoke._ep_smoke``; (d) and (e) are ``Smoke._tp_world`` with that
-letter alone, (d) at ``DENSE_TP_LAYERS`` or at each depth of ``--layers``
+(a) is ``Smoke._ep_smoke``, (b) ``Smoke._ep_full_width``; (d), (e) and
+(f) are ``Smoke._tp_world`` with that letter alone, (d) at ``DENSE_TP_LAYERS`` or at each depth of ``--layers``
 (where a failed gate is printed and the next depth run).  Each
 sub-phase prints its line as ``chip_smoke.py`` does, then its wall; the
 last line is the card's name and power limit."""
@@ -25,7 +27,7 @@ import chip_smoke  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sub", nargs="+", choices=("a", "d", "e"))
+    ap.add_argument("sub", nargs="+", choices=("a", "b", "d", "e", "f"))
     ap.add_argument("--layers", default=None,
                     help="comma-separated depths for (d)")
     args = ap.parse_args()
@@ -47,6 +49,8 @@ def main():
             try:
                 if sub == "a":
                     ctx._ep_smoke()
+                elif sub == "b":
+                    ctx._ep_full_width()
                 else:
                     ctx._tp_world(sub)
             except SystemExit as e:

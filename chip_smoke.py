@@ -156,8 +156,8 @@ Phases, in order; any failure exits non-zero before the last line:
      a ``ServeEngine`` wave's greedy tokens equal; (b) ``launch.serve
      --full`` for zamba2-1.2b and xlstm-350m: 192 tokens each; (c)
      zamba2-1.2b (38 layers, 1 352 519 680 parameters) whole, xlstm-350m
-     cut to 12 of 24 layers (254 184 496), llama-3.2-vision-90b cut to 20 of
-     100 layers (19 235 414 020; a memory (8, 1600, 1280), prefill with it
+     cut to 12 of 24 layers (254 184 496), llama-3.2-vision-90b cut to 10 of
+     100 layers (10 678 870 018; a memory (8, 1600, 1280), prefill with it
      must differ from prefill without), bf16: init s and peak, the
      launcher's 16 requests in process, prefill ms a wave and of 8 x 256
      tokens, decode ms a step (events), device ms and busy share against
@@ -203,9 +203,11 @@ Phases, in order; any failure exits non-zero before the last line:
      directly, and on the card the block's decode against
      ``moe_ffn_dense``; (b)
      deepseek-v2-236b at full width (4 of 60 layers, bf16) over (1, 2)
-     against world 1's ``moe_ffn_dense`` and against world 1 with its
-     expert sums in the EP decode's order (``_ep_full_width``; its ranks
-     run ``_ep_full_width_rank``, so the ranks import this file); (c) a
+     against world 1's ``moe_ffn_dense``, each MoE call against world
+     1's layer on the rank's own input (a decode's expert sums in the EP
+     decode's order) and every step's logits against world 1 run with
+     the rank's MoE outputs (``_ep_full_width``; its ranks run
+     ``_ep_full_width_rank``, so the ranks import this file); (c) a
      world-1 checkpoint restored onto (1, 2), and ``launch.train --mesh
      single`` refused at world 1; (d) the dense GQA leaves as their
      ``param_specs`` blocks (tensor-parallel attention and FFN, the batch
@@ -221,7 +223,14 @@ Phases, in order; any failure exits non-zero before the last line:
      smoke configs of ``LEAVES_SMOKE`` card against CPU as (d)'s, and
      the models of ``LEAVES_FULL`` cut in depth against world 1 as
      (d)'s full width (``_leaves_tp_rank``), one layer of each new kind
-     taught;
+     taught; (f) the decode state as its ``state_specs`` blocks (each
+     rank holds and runs against its rows, KV heads, latent columns and
+     mixer-state columns): the smoke configs of ``CACHE_SMOKE`` prefilled
+     and decoded card against CPU with f32 caches, and the models of
+     ``CACHE_FULL`` at full width cut in depth, a prefill of 8 x 512
+     into 1024 slots and 16 decode steps against world 1
+     (``_cache_tp_rank``): state bytes and decode ms a step a rank
+     against world 1's, the ledger a step by axis;
  12. the reference's invariants over the port, each sub-phase's wall and
      launches printed (counts set to 0 just before it, read just after):
      (a) ``python -m repro_torch.analysis --check`` exits 0 on the port's
@@ -275,6 +284,7 @@ without a CUDA device or outside a checkout of the repository.
 """
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -305,8 +315,8 @@ ZOO_MOE_FULL = (("deepseek-v2-236b", 4, 13_302_912_000),
                 ("llama4-maverick-400b-a17b", 2, 18_553_267_200))
 # phase 9's SSM and cross-attention configs, smoke size card against CPU,
 # and at full width (phases 9 and 10 (c)): (arch, layers, parameters);
-# llama-vision cut to 20 of its 100 layers (4 periods, so 4 cross layers)
-# to fit one card; xlstm to 12 of its 24 for time (6 mLSTM + 6 sLSTM: its
+# llama-vision cut to 10 of its 100 layers (2 periods, so 2 cross layers;
+# 20 until phase 11 (f) came, cut for time); xlstm to 12 of its 24 for time (6 mLSTM + 6 sLSTM: its
 # sLSTM is a Python loop over time, and 24 layers took 84 s of phase 10
 # (c) and 35 s of phase 9).  Not fewer: a scanned leaf's fan_in is its
 # period count, so fewer periods draw larger weights, and the card's draw
@@ -315,7 +325,7 @@ ZOO_MOE_FULL = (("deepseek-v2-236b", 4, 13_302_912_000),
 ZOO_SSM = ("zamba2-1.2b", "xlstm-350m", "llama-3.2-vision-90b")
 ZOO_SSM_FULL = (("zamba2-1.2b", 38, 1_352_519_680),
                 ("xlstm-350m", 12, 254_184_496),
-                ("llama-3.2-vision-90b", 20, 19_235_414_020))
+                ("llama-3.2-vision-90b", 10, 10_678_870_018))
 # phase 10: bf16 dense peak of the data sheet (SXM / PCIe), for the MFU
 BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}
 # phase 9 (SSM) (d): the long prefill's length per config, cut from 4096
@@ -362,6 +372,28 @@ LEAVES_FULL = (
 # 1's||, on the same weights: not raised (a one-ulp nudge of the weights
 # moves these more than the rounding of one layer does)
 DENSE_TP_TOL = {"loss": 2e-4, "logits": 3e-2, "teacher": 3e-2}
+# phase 11 (f): the decode state as its state_specs blocks.  Smoke (name,
+# arch, config overrides, batch), tests/test_torch_cache_tp.py's cases: a
+# GQA model with a batch the (2, 1) batch axis does not divide, MLA with
+# a dense FFN, Mamba2 beside GQA with left padding, mLSTM and sLSTM, GQA
+# beside cross layers prefilled with a memory; a prefill of 12 tokens
+# into 16 slots, 4 decode steps.  At full width, cut in depth to the
+# models of (d) and (e): (arch, layers, meshes); a prefill of 8 x
+# CACHE_PREFILL tokens into CACHE_CAPACITY slots, then CACHE_STEPS decode
+# steps; the logits held to DENSE_TP_TOL's, raised to twice world 1's
+# one-ulp floor where that is larger and below 1
+CACHE_SMOKE = (
+    ("gqa", "phi4-mini-3.8b", {}, 3),
+    ("mla", "deepseek-v2-236b", {"ffn_kind": "dense", "moe": None}, 8),
+    ("zamba", "zamba2-1.2b", {}, 8),
+    ("xlstm", "xlstm-350m", {}, 8),
+    ("vision", "llama-3.2-vision-90b", {}, 8))
+CACHE_FULL = (
+    ("phi4-mini-3.8b", 2, ("1x2", "2x1")),
+    ("deepseek-v2-236b", 1, ("1x2",)),
+    ("zamba2-1.2b", 6, ("1x2",)),
+    ("xlstm-350m", 2, ("1x2",)))
+CACHE_PREFILL, CACHE_CAPACITY, CACHE_STEPS = 512, 1024, 16
 
 
 def fail(msg):
@@ -2828,7 +2860,7 @@ class Smoke:
         the card: (a) card against CPU for zamba2's, xlstm's and
         llama-3.2-vision's smoke configs; (b) ``launch.serve --full`` for
         zamba2-1.2b and xlstm-350m; (c) zamba2-1.2b whole, xlstm-350m at 12
-        of 24 layers and llama-3.2-vision-90b at 20 of 100, at full width, each
+        of 24 layers and llama-3.2-vision-90b at 10 of 100, at full width, each
         timed, llama-vision with a memory; (d) a long prefill (zamba2
         1024 tokens, xlstm 512), then a decode, against a full forward.
         The path runs none
@@ -3388,8 +3420,12 @@ class Smoke:
         over (1, 2) and (2, 1) at smoke size card against CPU and at full
         width against world 1; (e) the same for MLA, cross-attention, the
         SSM mixers and the frontend projections (deepseek-v2, llama-
-        vision, zamba2, xlstm).  No rank launches a join kernel (each
-        rank's counts, read as its job ends, and this process's)."""
+        vision, zamba2, xlstm); (f) the decode state as its
+        ``state_specs`` blocks, a prefill and decode steps against each
+        rank's blocks (phi4-mini, deepseek-v2, zamba2, xlstm; smoke card
+        against CPU and full width against world 1).  No rank launches a
+        join kernel (each rank's counts, read as its job ends, and this
+        process's)."""
         torch = self.torch
         t0 = time.perf_counter()
         self.reset_launches()
@@ -3399,6 +3435,7 @@ class Smoke:
         tp = self._tp_world()
         self.ep["checkpoint"], self.ep["dense_tp"], self.ep["leaves_tp"] = \
             tp["c"], tp["d"], tp["e"]
+        self.ep["cache_tp"] = tp["f"]
         launches = [self.read_launches()] + self.ep_launches
         check(not any(v for l in launches for v in l.values()),
               f"phase 11 launched a join kernel: {launches}")
@@ -3630,20 +3667,29 @@ class Smoke:
         (handed to the ranks), teacher-forced with world 1's greedy
         tokens.
 
-        The witness of the decode's summation order: world 1 decodes the
-        same 12 steps again from the same cache with ``moe._combine``
-        adding a token's expert rows as the EP decode does (rank 0's
-        experts, then rank 1's, each partial in ascending order, then the
-        two partials: the psum).  Gates: every decode step's router ids,
-        every MoE layer, equal to that emulation's, and its logits within
-        3e-2 of max |logit| of them; the first MoE layer's ids equal world
-        1's at every call (its input is the same); against world 1 the
-        flips of both are counted (a later layer's input differs by the
-        order of the bf16 sums, and a flipped choice is a discrete change
-        no tolerance bounds) and the logits held to 3e-2 at every step
-        with no flip; the short prefill's logits to 3e-2 where none of its
-        choices flipped (its all-to-all path adds in arrival order, with
-        expert GEMMs of another shape: no emulation, flips counted).
+        Two witnesses, world 1 drawn again after the world (kept beside
+        the ranks it would not fit the card).  The expert-parallel MoE:
+        each rank records every MoE call's input and output, and world 1
+        runs the same layer on that input at the same capacity, a
+        decode's with ``moe._combine`` adding a token's expert rows as
+        the EP decode does (rank 0's experts, then rank 1's, each partial
+        in ascending order, then the two partials: the psum); every
+        call's router ids equal the witness's, a decode call's output
+        bit-equal to it, a short prefill call's (its all-to-all path adds
+        in arrival order, with expert GEMMs of another shape) within two
+        bf16 ulps of max |out|.  The whole path, attention and its MLA
+        state blocks too: world 1 runs the rank's short prefill and its
+        12 teacher-forced decode steps from the same cache with each MoE
+        layer's output replaced by the rank's recorded one, and every
+        step's logits, the short prefill's too, lie within 3e-2 of max
+        |logit| of that replay's (PERF.md §2's full-width bf16 limit):
+        what is left between them is the attention's and the dense
+        FFN's order of sums over ``tp``.  Against plain world 1 the flips
+        of every MoE layer and the logits' distance are recorded, not
+        held: the rank's first MoE layer's input differs from world 1's
+        by that order of sums, a flipped choice is a discrete change no
+        tolerance bounds, and this random bf16 model flips 18-69 of 144
+        choices a step.
         Recorded: init s and peak memory a rank, decode ms a step (CUDA
         events) against world 1's and against the bytes bound of one
         rank's weights (and of both ranks', which share the card),
@@ -3682,18 +3728,6 @@ class Smoke:
         _set_capacity(moes, mo.capacity_factor)
         w1_state = [{n: v if n == "index" else v.float().cpu().numpy()
                      for n, v in layer.items()} for layer in state]
-
-        def decode_from_cache(toks):
-            st = _state_on(w1_state, self.dev)
-            calls.clear()
-            out = []
-            for j, tok in enumerate(toks):
-                pos = torch.full((8, 1), 52 + j, dtype=torch.int32,
-                                 device=self.dev)
-                st, lg = decode(model, st, tok, pos)
-                out.append(lg.float().cpu().numpy())
-            return out, [c[0] for c in calls], sum(c[1] for c in calls)
-
         calls.clear()
         toks, w1_dec = [], []
         tok = steps.greedy_sample(last)[:, None]
@@ -3706,13 +3740,6 @@ class Smoke:
             tok = steps.greedy_sample(lg)[:, None]
         w1_ids = [c[0] for c in calls]
         w1["decode_dropped"] = sum(c[1] for c in calls)
-        # the same steps with the EP decode's order of the expert sums
-        combine = moe._combine
-        moe._combine = _combine_in_ep_order(combine, mo.num_experts // 2)
-        try:
-            emu_dec, emu_ids, emu_dropped = decode_from_cache(toks)
-        finally:
-            moe._combine = combine
         for h in hooks:
             h.remove()
         tok0, pos0 = toks[0], torch.full((8, 1), 52, dtype=torch.int32,
@@ -3734,6 +3761,11 @@ class Smoke:
         wall = time.perf_counter() - t0
         mx = float(np.abs(cfg_prefill).max())
         n_moe = len(w1_short[1])
+        # world 1 drawn again for the witnesses (kept beside the ranks it
+        # would not fit the card)
+        model = transformer.init_params(
+            cfg, torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        moes = self._moe_layers(model)
 
         def flips(a_ids, b_ids):
             return [int((a != b).sum()) for a, b in zip(a_ids, b_ids)]
@@ -3744,52 +3776,114 @@ class Smoke:
         def rel(a, b):
             return float(np.abs(a - b).max() / np.abs(b).max())
 
-        emu_vs_w1 = by_step(flips(emu_ids, w1_ids))
+        def ulps(a, b):
+            """|a - b|'s max in bf16 ulps of max |b|."""
+            m = float(np.abs(b).max())
+            return float(np.abs(a - b).max()) / 2.0 ** (
+                math.floor(math.log2(m)) - 7)
+
+        def witness(res, r):
+            """Each of the rank's MoE calls against world 1's layer on
+            the same input: (short prefill's, ids differing, output
+            distance of max |out|, in bf16 ulps of it, bit equal) a
+            call, the short prefill's first."""
+            out = []
+            combine = moe._combine
+            try:
+                for c, (x, y, ids) in enumerate(res["moe_calls"]):
+                    short = c < n_moe
+                    _set_capacity(moes, res["short_search"][-1][0] if short
+                                  else mo.capacity_factor)
+                    if not short:
+                        moe._combine = _combine_in_ep_order(
+                            combine, mo.num_experts // 2)
+                    with torch.no_grad():
+                        want = moes[c % n_moe](torch.as_tensor(
+                            x, device=self.dev).to(torch.bfloat16))[0]
+                    moe._combine = combine
+                    w_ids = moes[c % n_moe].stats["ids"].cpu().numpy()
+                    if short:  # rank r routes the r-th half of the sequence
+                        w_ids = w_ids.reshape(8, 2, -1)[:, r]
+                    want = want.float().cpu().numpy()
+                    out.append((short,
+                                int((ids != w_ids.reshape(ids.shape)).sum()),
+                                rel(y, want), ulps(y, want),
+                                bool(np.array_equal(y, want))))
+            finally:
+                moe._combine = combine
+                _set_capacity(moes, mo.capacity_factor)
+            return out
+
+        def replay(res):
+            """World 1 through the rank's short prefill and decode steps
+            with each MoE layer's output the rank's recorded one: the
+            short prefill's last logits and each step's."""
+            ys = iter(res["moe_calls"])
+
+            def put(mod, i, o):
+                return (torch.as_tensor(next(ys)[1], device=self.dev).to(
+                    o[0].dtype),) + tuple(o[1:])
+            hooks = [m.register_forward_hook(put) for m in moes]
+            try:
+                short = steps.make_prefill_step(cfg, 2)(model,
+                                                        prompt[:, :2])[1]
+                st, dec = _state_on(w1_state, self.dev), []
+                for j, tok in enumerate(toks):
+                    pos = torch.full((8, 1), 52 + j, dtype=torch.int32,
+                                     device=self.dev)
+                    st, lg = decode(model, st, tok, pos)
+                    dec.append(lg.float().cpu().numpy())
+            finally:
+                for h in hooks:
+                    h.remove()
+            check(next(ys, None) is None, "(1, 2) full width: the replay "
+                  "took fewer MoE calls than the rank recorded")
+            return short.float().cpu().numpy(), dec
+
         rows = []
         for r, res in enumerate(ranks):
             check(len(res["short_ids"]) == n_moe
-                  and len(res["ids"]) == len(w1_ids) == len(emu_ids)
-                  == 12 * n_moe, f"(1, 2) full width rank {r}: MoE calls")
+                  and len(res["ids"]) == len(w1_ids) == 12 * n_moe
+                  and len(res["moe_calls"]) == 13 * n_moe,
+                  f"(1, 2) full width rank {r}: MoE calls")
+            wit = witness(res, r)
+            check(all(f == 0 and (u <= 2 if short else eq)
+                      for short, f, _, u, eq in wit),
+                  f"(1, 2) full width rank {r}: MoE calls against world 1's "
+                  f"layers on the same inputs (short prefill's, ids "
+                  f"differing, output of max |out|, bf16 ulps of it, bit "
+                  f"equal): {wit}")
+            rep_short, rep_dec = replay(res)
+            rep_errs = [rel(res["short_prefill"], rep_short)] + [
+                rel(a, b) for a, b in zip(res["decode"], rep_dec)]
+            check(max(rep_errs) <= 3e-2,
+                  f"(1, 2) full width rank {r}: logits of max |logit| from "
+                  f"world 1 run with the rank's MoE outputs (short "
+                  f"prefill, then each decode step): {rep_errs}")
             # rank r holds the r-th half of a prefill's sequence (over
             # model), every token at a decode
             flips_short = flips(res["short_ids"],
                                 [b.reshape(8, 2, -1)[:, r] for b in
                                  w1_short[1]])
             flips_dec = flips(res["ids"], w1_ids)
-            flips_emu = flips(res["ids"], emu_ids)
-            check(flips_short[0] == 0 and all(
-                f == 0 for f in flips_dec[::n_moe]), f"(1, 2) full width "
-                f"rank {r}: first MoE layer's router ids differ from world "
-                f"1's: short prefill {flips_short}, decode {flips_dec}")
-            short_err = rel(res["short_prefill"], w1_short[0])
-            dec_errs = [rel(a, b) for a, b in zip(res["decode"], w1_dec)]
-            emu_errs = [rel(a, b) for a, b in zip(res["decode"], emu_dec)]
-            step_flips = by_step(flips_dec)
-            clean = [e for e, f in zip(dec_errs, step_flips) if f == 0]
-            check(sum(flips_emu) == 0 and max(emu_errs) <= 3e-2,
-                  f"(1, 2) full width rank {r}: decode against world 1 "
-                  f"in the EP order of sums: flips {by_step(flips_emu)}, "
-                  f"logits {emu_errs} of max |logit|")
-            check(all(e <= 3e-2 for e in clean)
-                  and (sum(flips_short) or short_err <= 3e-2),
-                  f"(1, 2) full width rank {r}: short prefill {short_err} "
-                  f"(flips {flips_short}) / decode {dec_errs} (flips "
-                  f"{step_flips}) of max |logit| from world 1")
             rows.append({
                 "init_s": res["init_s"], "init_peak_bytes":
                 res["init_peak_bytes"], "peak_bytes": res["peak_bytes"],
                 "param_bytes": res["param_bytes"],
-                "short_prefill_err": short_err,
+                "replay_short_prefill_err": rep_errs[0],
+                "replay_decode_err_by_step": rep_errs[1:],
+                "short_prefill_err": rel(res["short_prefill"], w1_short[0]),
                 "short_prefill_flips_by_layer": flips_short,
                 "short_search_dropped": res["short_search"],
-                "decode_err_by_step": dec_errs,
-                "decode_flips_by_step": step_flips,
-                "decode_err_max_no_flip": max(clean) if clean else None,
-                "decode_vs_ep_order_err_by_step": emu_errs,
-                "decode_vs_ep_order_flips": sum(flips_emu),
-                "decode_vs_ep_order_bit_equal": all(
-                    np.array_equal(a, b) for a, b in
-                    zip(res["decode"], emu_dec)),
+                "decode_err_by_step": [rel(a, b) for a, b in
+                                       zip(res["decode"], w1_dec)],
+                "decode_flips_by_step": by_step(flips_dec),
+                "first_moe_layer_flips_short_decode": [
+                    flips_short[0], flips_dec[::n_moe]],
+                "moe_witness_short_max_ulps": max(w[3] for w in wit
+                                                  if w[0]),
+                "moe_witness_max_err": max(w[2] for w in wit),
+                "moe_witness_bit_equal": sum(w[4] for w in wit),
                 "config_prefill_err": rel(res["config_prefill"],
                                           cfg_prefill),
                 "config_prefill_dropped": res["config_prefill_dropped"],
@@ -3802,17 +3896,15 @@ class Smoke:
         both = 1e3 * sum(r["param_bytes"] for r in rows) / self.bw
         out = {"world1": dict(w1, decode_bound_ms=1e3 * w1["param_bytes"]
                               / self.bw, max_abs_logit=mx),
-               "world1_ep_order": {
-                   "flips_vs_world1_by_step": emu_vs_w1,
-                   "err_vs_world1_by_step": [rel(a, b) for a, b in
-                                             zip(emu_dec, w1_dec)],
-                   "decode_dropped": emu_dropped},
-               "world_1x2": rows, "world_wall_s": wall,
+               "world_1x2": rows, "moe_calls_witnessed": len(wit),
+               "world_wall_s": wall,
                "decode_bound_ms_both_ranks": both,
                "capacity_factor": mo.capacity_factor,
                "world1_no_drop_capacity_factor": no_drop}
         log(f"phase 11 (b): deepseek-v2-236b full width, {layers} layers, "
             f"EP over (1, 2) vs world 1 ({self.smi}): " + json.dumps(out))
+        del model, moes
+        torch.cuda.empty_cache()
         return out
 
     def _ep_checkpoint_job(self):
@@ -3966,8 +4058,121 @@ class Smoke:
             return out
         return _leaves_tp_rank, {"smoke": smoke, "full": full}, report
 
-    def _tp_world(self, subs="cde"):
-        """Sub-phases (c), (d) and / or (e) in one world of two ranks
+    def _cache_tp_job(self):
+        """(f) The decode state as its ``state_specs`` blocks,
+        ``_cache_tp_rank``'s payload and its report: one world of two
+        ranks sharing the card, as (1, 2) and as (2, 1).  Smoke: each
+        config of ``CACHE_SMOKE`` in float32 on both meshes, card against
+        CPU (a prefill and 4 teacher-forced decode steps, weights from
+        seed 0 drawn on the CPU, every cross gate 0.5, the KV and latent
+        caches in f32: a bf16 cache element that the card's order of sums
+        rounds the other way would move the logits by ~10⁻⁴, and the
+        full-width runs below hold the bf16 caches), and the CPU on
+        weights nudged one ulp (its floor): the logits within 1e-4 of max
+        |logit|, for the chaotic configs (all but phi4-mini's) raised to
+        twice the CPU's floor where larger, as (d) and (e) hold theirs
+        (``_smoke_vs_cpu``).  Full width, each
+        model of ``CACHE_FULL`` against world 1 on its meshes
+        (``_decode_vs_world1``): the logits of the prefill and of every
+        decode step within max(3e-2, twice world 1's one-ulp floor, where
+        below 1) of max |logit|, at (2, 1) against world 1 run on the
+        mesh's groups of rows (plain world 1's distance printed); each
+        rank's state bytes against world 1's, decode ms a step a rank
+        against world 1's, and the ledger's calls and bytes a step by
+        axis printed, with the state blocks' distance from world 1's."""
+        np = self.np
+        from repro_torch.configs import get_config, get_smoke
+        rng = np.random.default_rng(28)
+        smoke, names = {"1x2": [], "2x1": []}, []
+        for name, arch, over, batch in CACHE_SMOKE:
+            cfg = get_smoke(arch)
+            toks = rng.integers(0, cfg.vocab_size, (batch, 16))
+            base = {"arch": arch, "overrides": over, "dtype": "float32",
+                    "gate": 0.5, "prompt": toks[:, :12],
+                    "decode": toks[:, 12:], "capacity": 16,
+                    "cache_dtype": "float32"}
+            if name == "zamba":
+                base["valid_from"] = rng.integers(0, 6, batch)
+            if cfg.cross_attn_every:
+                base["memory"] = rng.normal(
+                    size=(batch, 16, cfg.frontend_embed_dim)).astype(
+                        np.float32)
+            for m in smoke:
+                smoke[m] += [dict(base, device="cuda"),
+                             dict(base, device="cpu"),
+                             dict(base, device="cpu", nudge=1)]
+            names.append(name)
+        full = [{"arch": arch, "layers": layers, "meshes": meshes,
+                 "capacity": CACHE_CAPACITY, "prompt": CACHE_PREFILL,
+                 "tokens": rng.integers(0, get_config(arch).vocab_size, (
+                     8, CACHE_PREFILL + CACHE_STEPS))}
+                for arch, layers, meshes in CACHE_FULL]
+
+        def report(ranks):
+            out = {"rank_wall_s": [r["wall_s"] for r in ranks],
+                   "smoke": self._decode_smoke_vs_cpu(ranks, names),
+                   "full": {}}
+            for q in full:
+                rows = [r["full"][q["arch"]] for r in ranks]
+                floor = rows[0]["world1_floor"]
+                raised = 2 * floor
+                tol = max(DENSE_TP_TOL["logits"], raised if raised < 1
+                          else 0.0)
+                out["full"][q["arch"]] = {"tol": tol, "world1_floor": floor,
+                                          "ranks": rows}
+                for r, row in enumerate(rows):
+                    for m in q["meshes"]:
+                        got = row["meshes"][m]
+                        check(got["logits_err"] <= tol,
+                              f"(f) {q['arch']} {m} rank {r} vs world 1: "
+                              f"logits {got['logits_err']} of max |logit| "
+                              f"(tolerance {tol}; plain world 1 "
+                              f"{got['logits_vs_plain']})")
+            log(f"phase 11 (f): the decode state as its state_specs blocks "
+                f"over (1, 2) and (2, 1), smoke card vs cpu and full width "
+                f"vs world 1 ({self.smi}): " + json.dumps(out))
+            return out
+        return _cache_tp_rank, {"smoke": smoke, "full": full}, report
+
+    def _decode_smoke_vs_cpu(self, ranks, names):
+        """(f)'s smoke gates, each rank's (card, CPU, CPU nudged) triple
+        a config of ``names`` on each mesh, the caches in f32: the
+        prefill's and the decode steps' logits card against CPU within
+        1e-4 of max |logit|, raised to twice the CPU's floor where larger
+        for every config but phi4-mini's (``gqa``); the state blocks'
+        distance printed."""
+        np = self.np
+
+        def rel(a, b):
+            return float(np.abs(a - b).max() / np.abs(b).max())
+        out = {}
+        for mesh in ranks[0]["smoke"]:
+            rows = {}
+            for i, name in enumerate(names):
+                for r, res in enumerate(ranks):
+                    card, cpu, nudged = res["smoke"][mesh][3 * i:3 * i + 3]
+                    errs = {w: rel(card[w], cpu[w])
+                            for w in ("prefill", "decode")}
+                    floor = max(rel(nudged[w], cpu[w])
+                                for w in ("prefill", "decode"))
+                    tol = 1e-4 if name == "gqa" else max(1e-4, 2 * floor)
+                    check(max(errs.values()) <= tol,
+                          f"(f) smoke {name} {mesh} rank {r}: card vs cpu "
+                          f"logits {errs} (tolerance {tol}, the CPU's "
+                          f"floor {floor})")
+                    rows.setdefault(name, []).append({
+                        **errs, "cpu_floor": floor,
+                        "tol": tol, "state_bytes": card["state_bytes"],
+                        "state_vs_cpu": max(
+                            rel(a[n], b[n]) for a, b in zip(
+                                card["cache"], cpu["cache"]) for n in a
+                            if np.abs(b[n]).max() > 0),
+                        "step_ledger_card": card["step_ledgers"][-1]})
+            out[mesh] = rows
+        return out
+
+    def _tp_world(self, subs="cdef"):
+        """Sub-phases (c), (d), (e) and / or (f) in one world of two ranks
         sharing the card (``ep_world``'s ``many``: one spawn), after
         ``_warm_rank`` on both ranks at once: a rank process's first
         full-width bf16 training step takes seconds more than its next
@@ -3975,7 +4180,7 @@ class Smoke:
         that twice in a row.  Each sub-phase's report, keyed by its
         letter."""
         jobs = {"c": self._ep_checkpoint_job, "d": self._dense_tp_job,
-                "e": self._leaves_tp_job}
+                "e": self._leaves_tp_job, "f": self._cache_tp_job}
         parts = [jobs[k]() for k in subs]
         t0 = time.perf_counter()
         ranks = self._world((1, 2), "many", {"jobs": [(_warm_rank, {})] + [
@@ -4666,6 +4871,152 @@ def _leaves_tp_rank(mesh, dev, p):
     return out
 
 
+def _cache_tp_rank(mesh, dev, p):
+    """One rank of phase 11 (f)'s world (built as (1, 2), the (2, 1) mesh
+    over the same ranks): the smoke payloads of each mesh
+    (``_smoke_jobs``: a prefill and decode steps, card, CPU, CPU
+    nudged), then each model of ``full`` at full width cut to ``layers``
+    against world 1 on its meshes (``_decode_vs_world1``)."""
+    from repro_torch.distributed.mesh import make_mesh
+    t0 = time.perf_counter()
+    meshes = {"1x2": mesh, "2x1": make_mesh((2, 1), ("data", "model"))}
+    out = {"smoke": _smoke_jobs(meshes, p["smoke"]), "full": {}}
+    for q in p["full"]:
+        out["full"][q["arch"]] = _decode_vs_world1(
+            mesh, {k: meshes[k] for k in q["meshes"]}, dev,
+            _full_width_cfg(q["arch"], q["layers"]), q)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _decode_vs_world1(mesh, meshes, dev, cfg, q):
+    """``cfg`` (bf16) prefilled with ``tokens[:, :prompt]`` into
+    ``capacity`` slots and decoded a token a step, teacher-forced with the
+    rest, on each of ``meshes`` against world 1, the weights drawn on the
+    card from seed 0.  World 1 runs on each rank in turn (the others wait
+    at a barrier), also on the groups of rows a mesh splits the batch
+    into (the witness of that mesh's arithmetic), and on rank 0 on
+    weights nudged one ulp (its floor); then on each mesh each rank draws
+    its blocks in turn and runs the same calls against its block of the
+    state.  Per mesh: the logits' distance (the prefill's last and every
+    step's, of max |logit|) from the witness and from plain world 1,
+    decode ms a step (host walls, the card synchronized around each),
+    this rank's state bytes against world 1's, its state blocks'
+    distance from its blocks of world 1's (bf16 ulps of a cache block's
+    max, an f32 block's relative), the ledger's calls and bytes of the
+    prefill and a step by axis, peak memory."""
+    import statistics as stats
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.mesh import AxisEnv, axis_size
+    from repro_torch.launch.ep_world import ledger_delta, nudge_
+    from repro_torch.models import steps, transformer
+    toks = torch.as_tensor(q["tokens"], device=dev)
+    b, s = toks.shape[0], q["prompt"]
+
+    def groups(on):
+        ways = axis_size(on, AxisEnv.from_mesh(on).batch)
+        return ways if b % ways == 0 else 1
+
+    def draw(on):
+        model = None
+        for r in range(mesh.size if on is not None else 0):
+            if r == mesh.rank:
+                model = transformer.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                    mesh=on)
+                torch.cuda.synchronize()
+            dist.barrier()
+        if on is None:
+            model = transformer.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        return model
+
+    def run(model, on, t):
+        """(logits (1 + steps, B, V) f32, the state, timings, ledgers)."""
+        ledger = (on or mesh).axis_ledger
+        ledger.reset()
+        prefill = steps.make_prefill_step(cfg, q["capacity"], mesh=on)
+        decode = steps.make_decode_step(cfg, mesh=on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, last = prefill(model, t[:, :s])
+        torch.cuda.synchronize()
+        info = {"prefill_s": time.perf_counter() - t0, "step_ms": [],
+                "prefill_ledger": ledger.summary()["by_axis"],
+                "step_ledgers": []}
+        logits = [last.float()]
+        for j in range(t.shape[1] - s):
+            pos = torch.full((t.shape[0], 1), s + j, dtype=torch.int32,
+                             device=dev)
+            before = ledger.summary()["by_axis"]
+            t0 = time.perf_counter()
+            state, lg = decode(model, state, t[:, s + j:s + j + 1], pos)
+            torch.cuda.synchronize()
+            info["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            info["step_ledgers"].append(ledger_delta(
+                ledger.summary()["by_axis"], before))
+            logits.append(lg.float())
+        info["step_ms_median"] = stats.median(info["step_ms"])
+        info["state_bytes"] = sum(v.numel() * v.element_size()
+                                  for layer in state for v in layer.values()
+                                  if torch.is_tensor(v))
+        return torch.stack(logits), state, info
+
+    def rel(a, want):
+        return float((a - want).abs().max() / want.abs().max())
+
+    out = {"meshes": {}}
+    kept = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            torch.cuda.reset_peak_memory_stats()
+            model = draw(None)
+            lg, state, info = run(model, None, toks)
+            kept = {"logits": {1: lg}, "state": state}
+            for k in {groups(m) for m in meshes.values()} - {1}:
+                n = b // k
+                kept["logits"][k] = torch.cat([run(model, None, toks[j:j + n])[0]
+                                               for j in range(0, b, n)], 1)
+            if r == 0:
+                nudge_(model.parameters(), 1)
+                out["world1_floor"] = rel(run(model, None, toks)[0], lg)
+            info.pop("prefill_ledger")
+            info.pop("step_ledgers")
+            out["world1"] = dict(info, peak_bytes=torch.cuda.max_memory_allocated())
+            del model
+            torch.cuda.empty_cache()
+        dist.barrier()
+    for name, on in meshes.items():
+        torch.cuda.reset_peak_memory_stats()
+        model = draw(on)
+        lg, state, info = run(model, on, toks)
+        blocks = transformer.state_blocks(cfg, kept["state"], on)
+        dists = {}
+        for i, (a, w) in enumerate(zip(state, blocks)):
+            for n, t in a.items():
+                if not torch.is_tensor(t):
+                    continue
+                m = float(w[n].float().abs().max())
+                d = float((t.float() - w[n].float()).abs().max())
+                dists[f"{i}.{n}"] = (
+                    d / 2.0 ** (math.floor(math.log2(m)) - 7)
+                    if t.dtype == torch.bfloat16 and m else d / (m or 1.0))
+        info["step_ledger_last"] = info["step_ledgers"][-1]
+        out["meshes"][name] = dict(
+            info, step_ledgers=info["step_ledgers"][:2],
+            logits_err=rel(lg, kept["logits"][groups(on)]),
+            logits_vs_plain=rel(lg, kept["logits"][1]),
+            world1_state_bytes=out["world1"]["state_bytes"],
+            state_vs_world1_max=max(dists.values()),
+            peak_bytes=torch.cuda.max_memory_allocated())
+        del model, state
+        torch.cuda.empty_cache()
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
 def _vs_world1(mesh, meshes, dev, cfg, q):
     """``cfg`` on each of ``meshes`` against world 1, phase 10's settings
     (remat, AdamW, warmup 1 of 6), the weights drawn on the card from seed
@@ -4992,10 +5343,17 @@ def _ep_full_width_rank(mesh, dev, p):
            "param_bytes": sum(t.numel() * t.element_size()
                               for t in model.parameters())}
     moes = Smoke._moe_layers(model)
-    calls = []
-    hooks = [m.register_forward_hook(lambda mod, i, o: calls.append(
-        (mod.stats["ids"].cpu().numpy(), int(mod.stats["dropped"]))))
-        for m in moes]
+    # each MoE call's routing, and (while ``taken`` holds a list) its
+    # input, output and ids for the witness
+    calls, taken = [], [None]
+
+    def hook(mod, i, o):
+        calls.append((mod.stats["ids"].cpu().numpy(),
+                      int(mod.stats["dropped"])))
+        if taken[0] is not None:
+            taken[0].append((i[0].float().cpu().numpy(),
+                             o[0].float().cpu().numpy(), calls[-1][0]))
+    hooks = [m.register_forward_hook(hook) for m in moes]
 
     def f32(t):
         return t.float().cpu().numpy()
@@ -5020,8 +5378,11 @@ def _ep_full_width_rank(mesh, dev, p):
     prompt = torch.as_tensor(p["prompt"]).to(dev)
     b, s = prompt.shape
     short = steps.make_prefill_step(cfg, 2, use_ep=True, mesh=mesh)
+    taken[0] = []
     row["short_search"], last = search(short, prompt[:, :2],
                                        p["short_search"])
+    row["moe_calls"] = taken[0][-len(moes):]      # the last prefill's
+    taken[0] = None
     if row["short_search"][-1][1]:
         raise RuntimeError(f"short prefill: choices drop at every capacity "
                            f"factor of {p['short_search']}")
@@ -5034,14 +5395,16 @@ def _ep_full_width_rank(mesh, dev, p):
     row["config_prefill_dropped"] = sum(c[1] for c in calls)
     row["search_dropped"], _ = search(prefill, prompt, p["search"])
     decode = steps.make_decode_step(cfg, use_ep=True, mesh=mesh)
-    state = _state_on(p["state"], dev)
+    # world 1's no-drop cache, this rank's block of it (its latent columns)
+    state = transformer.state_blocks(cfg, _state_on(p["state"], dev), mesh)
     toks = torch.as_tensor(p["decode"]).to(dev)
     calls.clear()
-    logits = []
+    logits, taken[0] = [], row["moe_calls"]
     for j in range(toks.shape[1]):
         pos = torch.full((b, 1), s + j, dtype=torch.int32, device=dev)
         state, lg = decode(model, state, toks[:, j:j + 1], pos)
         logits.append(f32(lg))
+    taken[0] = None
     row["decode"] = np.stack(logits)
     row["ids"] = [c[0] for c in calls]
     row["dropped"] = [c[1] for c in calls]

@@ -18,9 +18,11 @@ The jobs (``payload`` keys in each docstring):
     smoke config's MoE weights, as the reference's ``shard_map`` runs it;
     the output, ``aux``, this rank's router ids and, with ``grad``, the
     gradients of ``sum(out * wgt) + aux_weight * aux``;
-  * ``model``: a smoke model over the mesh (its dense GQA leaves and
-    experts sharded, ``use_ep``): a forward, a prefill, teacher-forced
-    decode steps, and a train step;
+  * ``model``: a smoke model over the mesh (every leaf its block,
+    ``use_ep``): a forward, a prefill and teacher-forced decode steps
+    against this rank's block of the state (its blocks, bytes and ledger
+    a step reported; optionally with f32 caches, ``cache_dtype``), and a
+    train step;
   * ``restore``: a checkpoint restored onto the mesh;
   * ``save``: a model's tree gathered from the ranks' blocks and written
     by rank 0;
@@ -244,13 +246,21 @@ def _job_model(mesh, dev, p: dict) -> dict:
     step after (AdamW at ``TrainConfig()``, or ``tcfg``'s overrides).
     ``memory`` (B, M, F), where given, feeds the cross layers of the
     forward, the prefill and the train step.
+    ``valid_from`` (B,), where given, left-pads the prompt (the prefill
+    and every decode step take it).  Over the mesh the state is this
+    rank's block of it (``init_state(mesh=)``); with ``cache_dtype`` the
+    KV and latent caches are allocated in that dtype (a test's witness of
+    a mesh's arithmetic, ``init_state``).
     Returns the forward's logits, the prefill's last logits, every decode
     step's, the MoE layers' router ids and dropped choices a call (prefill
-    calls first), the cache after the last step, the collective ledger of
-    the prefill and decode (``ledger``) and of the train step
+    calls first), this rank's state after the prefill (``prefill_cache``)
+    and after the last step (``cache``) and its bytes (``state_bytes``),
+    the collective ledger of the prefill and decode (``ledger``), its
+    calls and bytes by axis of the prefill (``prefill_ledger``) and of
+    each decode step (``step_ledgers``), and of the train step
     (``train_ledger``), the train metrics, the optimizer's ``m`` gathered
-    whole (the reference's tree) and this rank's block shapes (the
-    reference's layout)."""
+    whole (the reference's tree), this rank's block shapes (the
+    reference's layout) and its mesh coordinates (``coords``)."""
     import torch
     from repro_torch.common.config import TrainConfig
     from repro_torch.distributed.mesh import AxisEnv
@@ -261,7 +271,8 @@ def _job_model(mesh, dev, p: dict) -> dict:
     on = None if p.get("whole") else mesh
     model = _draw(cfg, on, dev, p)
     named = {n: t.detach() for n, t in model.named_parameters()}
-    row = {"blocks": {"/".join(path): list(t.shape) for path, t in
+    row = {"coords": dict(mesh.coords),
+           "blocks": {"/".join(path): list(t.shape) for path, t in
                       tree_leaves(transformer.tree_from_weights(cfg, named))}}
     memory = (None if p.get("memory") is None
               else torch.as_tensor(p["memory"]).to(dev))
@@ -277,22 +288,33 @@ def _job_model(mesh, dev, p: dict) -> dict:
     mesh.axis_ledger.reset()
     if p.get("prompt") is not None:
         prompt = torch.as_tensor(p["prompt"]).to(dev)
+        valid_from = (None if p.get("valid_from") is None
+                      else torch.as_tensor(p["valid_from"]).to(dev))
         b, s = prompt.shape
         prefill = steps.make_prefill_step(cfg, p.get("capacity", s + 16),
-                                          use_ep=True, mesh=on)
-        state, last = prefill(model, prompt, memory=memory)
-        row.update(prefill_calls=len(calls), prefill=_np(last))
+                                          use_ep=True, mesh=on,
+                                          cache_dtype=p.get("cache_dtype"))
+        state, last = prefill(model, prompt, valid_from, memory=memory)
+        row.update(prefill_calls=len(calls), prefill=_np(last),
+                   prefill_cache=_np_state(state),
+                   prefill_ledger=mesh.axis_ledger.summary()["by_axis"])
         decode = steps.make_decode_step(cfg, use_ep=True, mesh=on)
         toks = torch.as_tensor(p.get("decode", np.zeros((b, 0), np.int64))
                                ).to(dev)
-        logits = []
+        logits, row["step_ledgers"] = [], []
         for j in range(toks.shape[1]):
             pos = torch.full((b, 1), s + j, dtype=torch.int32, device=dev)
-            state, lg = decode(model, state, toks[:, j:j + 1], pos)
+            before = mesh.axis_ledger.summary()["by_axis"]
+            state, lg = decode(model, state, toks[:, j:j + 1], pos,
+                               valid_from)
             logits.append(_np(lg))
+            row["step_ledgers"].append(ledger_delta(
+                mesh.axis_ledger.summary()["by_axis"], before))
         row["decode"] = np.stack(logits) if logits else None
-        row["cache"] = [{n: _np(t) for n, t in layer.items()
-                         if torch.is_tensor(t)} for layer in state]
+        row["cache"] = _np_state(state)
+        row["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for layer in state for t in layer.values()
+                                 if torch.is_tensor(t))
         del state
     row["ledger"] = mesh.axis_ledger.summary()
     for h in hooks:
@@ -316,6 +338,24 @@ def _job_model(mesh, dev, p: dict) -> dict:
             specs = transformer.local_specs(cfg, AxisEnv.from_mesh(mesh))
             row["m"] = _whole_tree(cfg, opt["m"], mesh, specs)
     return row
+
+
+def _np_state(state: list) -> list:
+    """A decode state's tensors (one dict a layer) as numpy copies."""
+    return [{n: np.array(_np(t)) for n, t in layer.items()
+             if not isinstance(t, int)} for layer in state]
+
+
+def ledger_delta(after: dict, before: dict) -> dict:
+    """The calls and bytes an ``AxisLedger``'s ``by_axis`` booked between
+    two readings (``summary()["by_axis"]``), by axis label (labels with
+    none left out)."""
+    out = {}
+    for axis, r in after.items():
+        b = before.get(axis, {"calls": 0, "bytes": 0})
+        if r["calls"] > b["calls"]:
+            out[axis] = {k: r[k] - b[k] for k in ("calls", "bytes")}
+    return out
 
 
 def _np_tree(tree: dict) -> dict:

@@ -20,9 +20,9 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.distributed import collectives as coll
-from repro_torch.models.layers import (ParamDef, ParamTree, rms_norm,
-                                       row_parallel_sum, use_block,
-                                       whole_leaves)
+from repro_torch.distributed.mesh import Spec, shard_leaf
+from repro_torch.models.layers import (ParamDef, ParamTree, read_blocks,
+                                       rms_norm, row_parallel_sum)
 
 
 # ---------------------------------------------------------------------------
@@ -142,25 +142,28 @@ def gqa_attention(params, x, positions, cfg: ModelConfig,
     return out, new_cache
 
 
-def gqa_attention_tp(params, x, positions, cfg: ModelConfig, mesh, env,
-                     compute_dtype=torch.bfloat16, valid_from=None):
+def gqa_attention_tp(w, x, positions, cfg: ModelConfig, mesh, env,
+                     compute_dtype=torch.bfloat16, valid_from=None,
+                     cache: Optional[dict] = None):
     """``gqa_attention`` on this rank's blocks over a model mesh, the body
-    of the train cell's sharded attention (no cache): ``params`` hold the
-    ``param_specs`` blocks, ``wq`` / ``wk`` / ``wv`` (d / fsdp, heads / tp,
-    hd) and ``wo`` (heads / tp, hd, d / fsdp); ``x`` (B_l, S, d) is this
-    rank's rows with d whole, ``positions`` and ``valid_from`` theirs.
-    The ``fsdp`` dims are gathered in the compute dtype (the backward, a
-    reduce-scatter, returns each block's gradient to its rank); the rank
-    runs its contiguous chunk of query heads and of KV heads, whose group
-    map ``h // g`` is the whole model's because ``tp`` divides the KV
-    heads; the partial products of ``wo`` are summed over ``tp``
-    (``row_parallel_sum``, the partial products in f32)."""
-    w = {n: use_block(params[n], d, mesh, env, compute_dtype, ("tp",))
-         for n, d in gqa_defs(cfg).items()}
-    out, _ = _gqa_heads(w, x, positions, cfg, None, compute_dtype,
-                        valid_from)
+    of the train cell's sharded attention and of the decode cell's:
+    ``w`` holds the ``param_specs`` blocks as this rank reads them
+    (``read_blocks``: the ``fsdp`` dims gathered), ``wq`` / ``wk`` /
+    ``wv`` (d, heads / tp, hd) and ``wo`` (heads / tp, hd, d); ``x``
+    (B_l, S, d) is this rank's rows with d whole, ``positions`` and
+    ``valid_from`` theirs.  The rank runs its contiguous chunk of query
+    heads and of KV heads, whose group map ``h // g`` is the whole
+    model's because ``tp`` divides the KV heads; the partial products of
+    ``wo`` are summed over ``tp`` (``row_parallel_sum``, the partial
+    products in f32).  ``cache`` is this rank's block of the KV cache
+    (``state_specs``: its rows, its KV heads), ``{"k", "v": (B_l, T,
+    Hkv / tp, hd), "index": int}``: the rank writes its heads' keys and
+    values in place and attends over its block, so no rank reads another
+    rank's KV heads.  Returns (out, new_cache)."""
+    out, new_cache = _gqa_heads(w, x, positions, cfg, cache, compute_dtype,
+                                valid_from)
     part = torch.einsum("bshk,hkd->bsd", out.float(), w["wo"].float())
-    return row_parallel_sum(part, mesh, env, compute_dtype)
+    return row_parallel_sum(part, mesh, env, compute_dtype), new_cache
 
 
 def gqa_cache_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
@@ -177,9 +180,9 @@ def gqa_cache_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
 class GQAAttention(torch.nn.Module):
     """``gqa_attention`` over parameters named and shaped as the
     reference's ``attn`` subtree.  Over a model mesh they hold this
-    rank's ``param_specs`` blocks: ``forward`` with the ``mesh`` gathers
-    them whole (a call with a cache), and ``forward_tp`` runs this rank's
-    heads (``gqa_attention_tp``)."""
+    rank's ``param_specs`` blocks and ``forward_tp`` runs this rank's
+    heads (``gqa_attention_tp``; with a cache, against its block, the
+    gathered weights kept)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict,
                  compute_dtype: torch.dtype):
@@ -192,15 +195,16 @@ class GQAAttention(torch.nn.Module):
     def params(self) -> dict:
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
 
-    def forward(self, x, positions, cache=None, valid_from=None, mesh=None):
-        params = (self.params() if mesh is None else whole_leaves(
-            self, gqa_defs(self.cfg), mesh, self.compute_dtype))
-        return gqa_attention(params, x, positions, self.cfg, cache,
+    def forward(self, x, positions, cache=None, valid_from=None):
+        return gqa_attention(self.params(), x, positions, self.cfg, cache,
                              self.compute_dtype, valid_from=valid_from)
 
-    def forward_tp(self, x, positions, mesh, env, valid_from=None):
-        return gqa_attention_tp(self.params(), x, positions, self.cfg, mesh,
-                                env, self.compute_dtype, valid_from)
+    def forward_tp(self, x, positions, mesh, env, valid_from=None,
+                   cache=None):
+        w = read_blocks(self, gqa_defs(self.cfg), mesh, env,
+                        self.compute_dtype, ("tp",), cache is not None)
+        return gqa_attention_tp(w, x, positions, self.cfg, mesh, env,
+                                self.compute_dtype, valid_from, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -327,44 +331,68 @@ def mla_attention(params, x, positions, cfg: ModelConfig,
     return out, new_cache
 
 
-def mla_attention_tp(params, x, positions, cfg: ModelConfig, mesh, env,
-                     compute_dtype=torch.bfloat16, valid_from=None):
-    """``mla_attention`` (absorb=True, no cache) on this rank's blocks
-    over a model mesh, the body of the train cell's sharded MLA: ``x``
-    (B_l, S, d) this rank's rows with d whole, ``positions`` and
-    ``valid_from`` theirs.  The heads run over ``tp``: ``w_uq`` / ``w_uk``
-    / ``w_uv`` (R, H / tp, .) and ``wq`` (d, H / tp, qd) are this rank's
-    heads, and the partial products of ``wo`` (H / tp, v, d) are summed
-    over ``tp`` (``row_parallel_sum``).  The latent projections ``w_dkv``
-    / ``w_dq`` (d, R / tp) give this rank's columns of the latent, which
-    are gathered over ``tp`` into the whole (B_l, S, R) that ``kv_norm``
-    / ``q_norm`` normalise and every head reads: at the train cell's
-    shapes that activation is smaller than the weights' ``tp`` dim, and
-    its gather's backward (a reduce-scatter) sums the heads' cotangents.
-    ``w_kr`` is gathered over ``fsdp``; every ``fsdp`` dim is gathered in
-    the compute dtype; the norms are whole on every rank."""
-    cdt, defs = compute_dtype, mla_defs(cfg)
+def mla_attention_tp(w, x, positions, cfg: ModelConfig, mesh, env,
+                     compute_dtype=torch.bfloat16, valid_from=None,
+                     cache: Optional[dict] = None):
+    """``mla_attention`` (absorb=True) on this rank's blocks over a model
+    mesh, the body of the train cell's sharded MLA and of the decode
+    cell's: ``w`` the blocks as this rank reads them (``read_blocks``:
+    every ``fsdp`` dim gathered; the norms whole), ``x`` (B_l, S, d) this
+    rank's rows with d whole, ``positions`` and ``valid_from`` theirs.
+    The heads run over ``tp``: ``w_uq`` / ``w_uk`` / ``w_uv`` (R, H / tp,
+    .) and ``wq`` (d, H / tp, qd) are this rank's heads, and the partial
+    products of ``wo`` (H / tp, v, d) are summed over ``tp``
+    (``row_parallel_sum``).  The latent projections ``w_dkv`` / ``w_dq``
+    (d, R / tp) give this rank's columns of the latent, which are
+    gathered over ``tp`` into the whole (B_l, S, R) that ``kv_norm`` /
+    ``q_norm`` normalise and every head reads: at the train cell's shapes
+    that activation is smaller than the weights' ``tp`` dim, and its
+    gather's backward (a reduce-scatter) sums the heads' cotangents.
 
-    def w(name, dtype=cdt):
-        return use_block(params[name], defs[name], mesh, env, dtype, ("tp",))
+    ``cache`` is this rank's block of the latent cache (``state_specs``):
+    ``ckv`` (B_l, T, R / tp), its columns of the normalised latent, and
+    ``kr`` (B_l, T, Dr) whole over ``tp``.  The new tokens' columns and
+    rope keys are written in place at ``index``.  This rank's heads read
+    every latent column of every cached token, so the written slots of
+    the other ranks' columns are gathered for the call (booked under
+    ``latent_cache``) and dropped after it: between calls each rank holds
+    its columns alone (PERF.md weighs this against partial scores summed
+    over ``tp``).  Returns (out, new_cache)."""
+    cdt = compute_dtype
 
     def latent(proj, norm):
-        part = torch.einsum("bsd,dr->bsr", x, w(proj))
+        part = torch.einsum("bsd,dr->bsr", x, w[proj])
         whole = coll.gather(part, mesh, env.tp, 2, "tp")
-        return rms_norm(whole, w(norm, params[norm].dtype), cfg.norm_eps)
+        return rms_norm(whole, w[norm], cfg.norm_eps)
 
     if cfg.mla.q_lora_rank:
         q = torch.einsum("bsr,rhk->bshk", latent("w_dq", "q_norm"),
-                         w("w_uq"))
+                         w["w_uq"])
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, w("wq"))
+        q = torch.einsum("bsd,dhk->bshk", x, w["wq"])
     q = _rope_q(q, positions, cfg)
     ckv = latent("w_dkv", "kv_norm")
-    kr = _rope_k(torch.einsum("bsd,dk->bsk", x, w("w_kr")), positions, cfg)
-    heads = {"w_uk": w("w_uk"), "w_uv": w("w_uv")}
-    out = _mla_heads(heads, q, ckv, kr, cfg, cdt, 0, True, valid_from)
-    part = torch.einsum("bshv,hvd->bsd", out.float(), w("wo").float())
-    return row_parallel_sum(part, mesh, env, cdt)
+    kr = _rope_k(torch.einsum("bsd,dk->bsk", x, w["w_kr"]), positions, cfg)
+    new_cache, q_offset = None, 0
+    if cache is not None:
+        idx, c_kv, c_kr = cache["index"], cache["ckv"], cache["kr"]
+        s = x.shape[1]
+        if idx + s > c_kv.shape[1]:
+            raise ValueError(f"MLA cache of capacity {c_kv.shape[1]} cannot "
+                             f"take {s} tokens at index {idx}")
+        mine = shard_leaf(mesh, ckv, Spec(None, None, env.resolve(("tp",))[0]))
+        c_kv[:, idx:idx + s] = mine.to(c_kv.dtype)
+        c_kr[:, idx:idx + s] = kr.to(c_kr.dtype)
+        ckv = ckv.to(c_kv.dtype)
+        if idx:
+            ckv = torch.cat([coll.gather(c_kv[:, :idx], mesh, env.tp, 2,
+                                         "latent_cache"), ckv], dim=1)
+        kr, q_offset = c_kr[:, :idx + s], idx
+        new_cache = {"ckv": c_kv, "kr": c_kr, "index": idx + s}
+    heads = {"w_uk": w["w_uk"], "w_uv": w["w_uv"]}
+    out = _mla_heads(heads, q, ckv, kr, cfg, cdt, q_offset, True, valid_from)
+    part = torch.einsum("bshv,hvd->bsd", out.float(), w["wo"].float())
+    return row_parallel_sum(part, mesh, env, cdt), new_cache
 
 
 def mla_cache_defs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
@@ -381,10 +409,9 @@ class MLAAttention(torch.nn.Module):
     """``mla_attention`` (absorb=True, as the reference's block calls it)
     over parameters named and shaped as the reference's MLA ``attn``
     subtree (``kv_norm`` and ``q_norm`` plain 1-D parameters).  Over a
-    model mesh they hold this rank's ``param_specs`` blocks: ``forward``
-    with the ``mesh`` gathers the sharded ones whole (a call with a
-    cache), and ``forward_tp`` runs this rank's heads
-    (``mla_attention_tp``)."""
+    model mesh they hold this rank's ``param_specs`` blocks and
+    ``forward_tp`` runs this rank's heads (``mla_attention_tp``; with a
+    cache, against its block, the gathered weights kept)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict,
                  compute_dtype: torch.dtype):
@@ -398,15 +425,16 @@ class MLAAttention(torch.nn.Module):
     def params(self) -> dict:
         return {n: getattr(self, n) for n in self.names}
 
-    def forward(self, x, positions, cache=None, valid_from=None, mesh=None):
-        params = (self.params() if mesh is None else whole_leaves(
-            self, mla_defs(self.cfg), mesh, self.compute_dtype))
-        return mla_attention(params, x, positions, self.cfg, cache,
+    def forward(self, x, positions, cache=None, valid_from=None):
+        return mla_attention(self.params(), x, positions, self.cfg, cache,
                              self.compute_dtype, valid_from=valid_from)
 
-    def forward_tp(self, x, positions, mesh, env, valid_from=None):
-        return mla_attention_tp(self.params(), x, positions, self.cfg, mesh,
-                                env, self.compute_dtype, valid_from)
+    def forward_tp(self, x, positions, mesh, env, valid_from=None,
+                   cache=None):
+        w = read_blocks(self, mla_defs(self.cfg), mesh, env,
+                        self.compute_dtype, ("tp",), cache is not None)
+        return mla_attention_tp(w, x, positions, self.cfg, mesh, env,
+                                self.compute_dtype, valid_from, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -443,34 +471,29 @@ def _cross_heads(params, x, memory, compute_dtype):
     return _sdpa(q, k, v, causal=False, q_offset=0)
 
 
-def cross_attention_tp(params, x, memory, cfg: ModelConfig, mesh, env,
+def cross_attention_tp(w, x, memory, cfg: ModelConfig, mesh, env,
                        compute_dtype=torch.bfloat16):
     """``cross_attention`` on this rank's blocks over a model mesh, the
     body of the train cell's sharded cross layer: ``gqa_attention_tp``'s
-    heads over ``tp`` (``wq`` / ``wk`` / ``wv`` / ``wo`` with ``fsdp``
-    gathered, the partial products of ``wo`` summed over ``tp``), its
-    keys and values from ``memory`` (B_l, M, d), this rank's rows of it
-    as ``x`` (B_l, S, d) holds its rows, and no mask.  ``tanh(gate)``
-    scales the sum after it is rounded to the compute dtype, the
-    reference's order; the 0-d ``gate`` is whole on every rank."""
-    defs = cross_attn_defs(cfg)
-    w = {n: use_block(params[n], defs[n], mesh, env, compute_dtype, ("tp",))
-         for n in ("wq", "wk", "wv", "wo")}
+    heads over ``tp`` (``w`` the blocks as this rank reads them, ``wq`` /
+    ``wk`` / ``wv`` / ``wo`` with ``fsdp`` gathered, the partial products
+    of ``wo`` summed over ``tp``), its keys and values from ``memory``
+    (B_l, M, d), this rank's rows of it as ``x`` (B_l, S, d) holds its
+    rows, and no mask.  ``tanh(gate)`` scales the sum after it is rounded
+    to the compute dtype, the reference's order; the 0-d ``gate`` is
+    whole on every rank."""
     out = _cross_heads(w, x, memory, compute_dtype)
     part = torch.einsum("bshk,hkd->bsd", out.float(), w["wo"].float())
     out = row_parallel_sum(part, mesh, env, compute_dtype)
-    gate = use_block(params["gate"], defs["gate"], mesh, env,
-                     params["gate"].dtype)
-    return torch.tanh(gate.float()).to(out.dtype) * out
+    return torch.tanh(w["gate"].float()).to(out.dtype) * out
 
 
 class CrossAttention(torch.nn.Module):
     """``cross_attention`` over parameters named and shaped as the
     reference's cross ``attn`` subtree (``gate`` a 0-d parameter).  Over a
-    model mesh they hold this rank's ``param_specs`` blocks: ``forward``
-    with the ``mesh`` gathers the projections whole (a call with a
-    state), and ``forward_tp`` runs this rank's heads
-    (``cross_attention_tp``)."""
+    model mesh they hold this rank's ``param_specs`` blocks and
+    ``forward_tp`` runs this rank's heads (``cross_attention_tp``; with
+    ``keep``, a call with a state, the gathered blocks kept)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict,
                  compute_dtype: torch.dtype):
@@ -484,11 +507,12 @@ class CrossAttention(torch.nn.Module):
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo,
                 "gate": self.gate}
 
-    def forward(self, x, memory, mesh=None):
-        params = (self.params() if mesh is None else whole_leaves(
-            self, cross_attn_defs(self.cfg), mesh, self.compute_dtype))
-        return cross_attention(params, x, memory, self.cfg, self.compute_dtype)
+    def forward(self, x, memory):
+        return cross_attention(self.params(), x, memory, self.cfg,
+                               self.compute_dtype)
 
-    def forward_tp(self, x, memory, mesh, env):
-        return cross_attention_tp(self.params(), x, memory, self.cfg, mesh,
-                                  env, self.compute_dtype)
+    def forward_tp(self, x, memory, mesh, env, keep=False):
+        w = read_blocks(self, cross_attn_defs(self.cfg), mesh, env,
+                        self.compute_dtype, ("tp",), keep)
+        return cross_attention_tp(w, x, memory, self.cfg, mesh, env,
+                                  self.compute_dtype)

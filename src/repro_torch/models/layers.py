@@ -18,7 +18,6 @@ import torch
 from torch import nn
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.mesh import AxisEnv, unshard_leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,22 +174,17 @@ def row_parallel_sum(part: torch.Tensor, mesh, env,
     return coll.psum(part, mesh, env.tp, "tp").to(dtype)
 
 
-def swiglu_tp(x: torch.Tensor, w_gate, w_up, w_down, compute_dtype, mesh,
+def swiglu_tp(x: torch.Tensor, w: dict, compute_dtype, mesh,
               env) -> torch.Tensor:
     """``swiglu`` on this rank's blocks over a model mesh, the body of the
     train cell's sharded dense FFN: ``x`` (B_l, S, d) this rank's rows,
-    ``w_gate`` / ``w_up`` (d / fsdp, d_ff / tp), ``w_down`` (d_ff / tp,
-    d / fsdp).  The ``fsdp`` dims are gathered in the compute dtype (the
-    backward, a reduce-scatter, returns each block's gradient to its
-    rank), the rank computes its chunk of d_ff, and the partial products
-    of ``w_down`` are summed over ``tp`` (``row_parallel_sum``, the
-    partials in f32)."""
-    defs = dense_ffn_defs(1, 1)      # the leaves' logical dims
-    w_gate, w_up, w_down = (
-        use_block(w, defs[n], mesh, env, compute_dtype, ("tp",))
-        for n, w in (("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)))
-    h = _swiglu_hidden(x, w_gate, w_up, compute_dtype)
-    part = torch.einsum("...f,fd->...d", h.float(), w_down.float())
+    ``w`` the blocks as this rank reads them (``read_blocks``: the
+    ``fsdp`` dims gathered), ``w_gate`` / ``w_up`` (d, d_ff / tp) and
+    ``w_down`` (d_ff / tp, d).  The rank computes its chunk of d_ff, and
+    the partial products of ``w_down`` are summed over ``tp``
+    (``row_parallel_sum``, the partials in f32)."""
+    h = _swiglu_hidden(x, w["w_gate"], w["w_up"], compute_dtype)
+    part = torch.einsum("...f,fd->...d", h.float(), w["w_down"].float())
     return row_parallel_sum(part, mesh, env, compute_dtype)
 
 
@@ -204,33 +198,44 @@ def read_dtype(module: nn.Module, name: str, compute_dtype) -> torch.dtype:
     return p.dtype if p.dim() < 2 or name in keep else compute_dtype
 
 
-def whole_leaves(module: nn.Module, defs: dict, mesh, compute_dtype) -> dict:
-    """The leaves of ``module`` that ``defs`` names, each whole in the
-    dtype the forward reads it in (``read_dtype``): gathered from every
-    rank's block (its ``param_specs`` spec on ``mesh``; a gather is
-    exact).  A call with a state (a prefill, a decode step) computes on
-    these, as a world of one does.  Each is kept on the module until its
-    block changes (another tensor, or an in-place update), so the decode
-    steps of a model gather once: the gathers go through the host on the
-    card."""
-    env = AxisEnv.from_mesh(mesh)
-    kept = module.__dict__.setdefault("_whole", {})
-    out = {}
-    for name, d in defs.items():
-        p = getattr(module, name)
-        key = (p._version, p.data_ptr(), p.device)
-        hit = kept.get(name)
-        if hit is None or hit[0] is not p or hit[1] != key:
-            with torch.no_grad():
-                w = p.detach().to(read_dtype(module, name, compute_dtype))
-                w = unshard_leaf(mesh, w, env.resolve(d.logical), "whole")
-            hit = kept[name] = (p, key, w)
-        out[name] = hit[2]
-    return out
+def kept_block(module: nn.Module, name: str, d: ParamDef, mesh, env,
+               dtype, local: tuple = ()) -> torch.Tensor:
+    """``use_block``'s value for a call with a state (a prefill, a decode
+    step), which takes no gradient, its gathers booked under ``weights``.
+    The result is kept on the module until ``module``'s leaf ``name``
+    changes (another tensor, or an in-place update), so the decode steps
+    of a model gather its weights once: the gathers go through the host
+    on the card."""
+    kept = module.__dict__.setdefault("_kept", {})
+    p = getattr(module, name)
+    key = (p._version, p.data_ptr(), p.device, dtype)
+    hit = kept.get((name, local))
+    if hit is None or hit[0] is not p or hit[1] != key:
+        with torch.no_grad():
+            w = use_block(p.detach(), d, mesh, env, dtype, local, "weights")
+        hit = kept[(name, local)] = (p, key, w)
+    return hit[2]
+
+
+def read_blocks(module: nn.Module, defs: dict, mesh, env, compute_dtype,
+                local: tuple = (), keep: bool = False) -> dict:
+    """The leaves of ``module`` that ``defs`` names as this rank's
+    computation reads them over a model mesh, each in its ``read_dtype``
+    with its sharded dims outside ``local`` gathered: ``use_block`` (the
+    backward returns each block's gradient to its rank), or with
+    ``keep`` (a call with a state) ``kept_block``, gathered once and
+    kept."""
+    if keep:
+        return {n: kept_block(module, n, d, mesh, env,
+                              read_dtype(module, n, compute_dtype), local)
+                for n, d in defs.items()}
+    return {n: use_block(getattr(module, n), d, mesh, env,
+                         read_dtype(module, n, compute_dtype), local)
+            for n, d in defs.items()}
 
 
 def use_block(w: torch.Tensor, d: ParamDef, mesh, env, dtype,
-              local: tuple = ()) -> torch.Tensor:
+              local: tuple = (), label: str = None) -> torch.Tensor:
     """A leaf as this rank's computation reads it over a model mesh of
     the train cell: ``w`` its block under ``d``'s ``param_specs`` spec,
     cast to ``dtype``, each sharded dim whose logical name is not in
@@ -238,13 +243,14 @@ def use_block(w: torch.Tensor, d: ParamDef, mesh, env, dtype,
     block's share of the gradient to its rank).  The block is first
     marked replicated over the axes its spec leaves out
     (``collectives.pvary``): each of those ranks runs other rows of the
-    batch, or other heads, so their gradients are summed."""
+    batch, or other heads, so their gradients are summed.  Each gather is
+    booked under ``label``, by default the dim's logical name."""
     spec = env.resolve(d.logical)
     rest = tuple(a for a in mesh.axis_names if a not in spec.all_axes())
     w = coll.pvary(w, mesh, rest, "replicas").to(dtype)
     for dim, name in enumerate(d.logical):
         if name is not None and name not in local and spec.axes(dim):
-            w = coll.gather(w, mesh, spec.axes(dim), dim, name)
+            w = coll.gather(w, mesh, spec.axes(dim), dim, label or name)
     return w
 
 
@@ -285,9 +291,9 @@ class RMSNorm(nn.Module):
 class DenseFFN(nn.Module):
     """SwiGLU over ``w_gate``, ``w_up``, ``w_down`` (the reference's
     ``ffn`` subtree), each cast to ``compute_dtype`` at use.  Over a model
-    mesh the leaves hold this rank's ``param_specs`` blocks: ``forward``
-    with the ``mesh`` gathers them whole (a call with a state), and
-    ``forward_tp`` runs this rank's block (``swiglu_tp``)."""
+    mesh the leaves hold this rank's ``param_specs`` blocks and
+    ``forward_tp`` runs this rank's block (``swiglu_tp``; with ``keep``,
+    a call with a state, the gathered blocks are kept)."""
 
     def __init__(self, weights: dict, compute_dtype: torch.dtype):
         super().__init__()
@@ -295,15 +301,12 @@ class DenseFFN(nn.Module):
             setattr(self, name, nn.Parameter(weights[name]))
         self.compute_dtype = compute_dtype
 
-    def forward(self, x, mesh=None):
-        # the defs give the leaves' logical dims (their sizes unused)
-        w = (whole_leaves(self, dense_ffn_defs(1, 1), mesh,
-                          self.compute_dtype) if mesh is not None
-             else {"w_gate": self.w_gate, "w_up": self.w_up,
-                   "w_down": self.w_down})
-        return swiglu(x, w["w_gate"], w["w_up"], w["w_down"],
+    def forward(self, x):
+        return swiglu(x, self.w_gate, self.w_up, self.w_down,
                       self.compute_dtype)
 
-    def forward_tp(self, x, mesh, env):
-        return swiglu_tp(x, self.w_gate, self.w_up, self.w_down,
-                         self.compute_dtype, mesh, env)
+    def forward_tp(self, x, mesh, env, keep=False):
+        # the defs give the leaves' logical dims (their sizes unused)
+        w = read_blocks(self, dense_ffn_defs(1, 1), mesh, env,
+                        self.compute_dtype, ("tp",), keep)
+        return swiglu_tp(x, w, self.compute_dtype, mesh, env)

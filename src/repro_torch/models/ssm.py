@@ -30,9 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.models.layers import (ParamDef, ParamTree, read_dtype,
-                                       rms_norm, silu, use_block,
-                                       whole_leaves)
+from repro_torch.distributed.mesh import shard_leaf, unshard_leaf
+from repro_torch.models.layers import (ParamDef, ParamTree, read_blocks,
+                                       rms_norm, silu)
 
 
 def _state_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -460,15 +460,15 @@ class _Mixer(nn.Module):
     norm runs over the whole d_in; mLSTM's ``w_up`` block is the x or the
     z half, its norm over the whole d_in; sLSTM's ``tp`` dim is the head
     dim its recurrence mixes at every step.  So every leaf is gathered
-    whole for a call: ``forward`` with the ``mesh`` (a call with a state)
-    gathers once and keeps them (``whole_leaves``); ``forward_rows`` (no
-    state) gathers them in each call, the backward returning each block's
-    gradient to its rank, and runs the mixer on this rank's rows of the
-    batch.  Each leaf is gathered in the dtype the forward reads it in
-    (``layers.read_dtype``): the values it computes with are a world of
-    one's."""
+    whole for a call, in the dtype the forward reads it in
+    (``layers.read_dtype``): ``forward_rows`` (no state) gathers them in
+    each call, the backward returning each block's gradient to its rank;
+    ``forward_state`` (a prefill or decode) gathers them once and keeps
+    them (``layers.kept_block``).  Both run the mixer on this rank's rows of
+    the batch, so the values it computes with are a world of one's."""
 
     defs = staticmethod(mamba2_defs)
+    state_defs = staticmethod(mamba2_state_defs)
     fn = staticmethod(mamba2_forward)
 
     def __init__(self, cfg: ModelConfig, weights: dict,
@@ -480,19 +480,35 @@ class _Mixer(nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
 
-    def forward(self, x, state=None, valid=None, mesh=None):
-        params = ({n: getattr(self, n) for n in self.names} if mesh is None
-                  else whole_leaves(self, self.defs(self.cfg), mesh,
-                                    self.compute_dtype))
+    def forward(self, x, state=None, valid=None):
+        params = {n: getattr(self, n) for n in self.names}
         return self.fn(params, x, self.cfg, state, self.compute_dtype,
                        valid=valid)
 
     def forward_rows(self, x, valid, mesh, env):
-        cdt = self.compute_dtype
-        params = {n: use_block(getattr(self, n), d, mesh, env,
-                               read_dtype(self, n, cdt))
-                  for n, d in self.defs(self.cfg).items()}
-        return self.fn(params, x, self.cfg, None, cdt, valid=valid)[0]
+        params = read_blocks(self, self.defs(self.cfg), mesh, env,
+                             self.compute_dtype)
+        return self.fn(params, x, self.cfg, None, self.compute_dtype,
+                       valid=valid)[0]
+
+    def forward_state(self, x, state, valid, mesh, env):
+        """(out, this rank's block of the new state) of this rank's rows
+        ``x`` and ``state``, its block of the layer's state
+        (``state_specs``: its rows, its ``tp`` columns).  The state's
+        ``tp`` dims cut across the recurrence as the weights' do, so the
+        blocks are gathered over ``tp`` for the call (booked under
+        ``ssm_state``; the state does not grow with the sequence), the
+        mixer runs, and this rank's block of the new state is kept."""
+        params = read_blocks(self, self.defs(self.cfg), mesh, env,
+                             self.compute_dtype, keep=True)
+        specs = {n: env.resolve(tuple(None if a == "batch" else a
+                                      for a in sd[1]))
+                 for n, sd in self.state_defs(self.cfg, 1).items()}
+        whole = {n: unshard_leaf(mesh, state[n], specs[n], "ssm_state")
+                 for n in specs}
+        out, new = self.fn(params, x, self.cfg, whole, self.compute_dtype,
+                           valid=valid)
+        return out, {n: shard_leaf(mesh, t, specs[n]) for n, t in new.items()}
 
 
 class Mamba2Mixer(_Mixer):
@@ -501,11 +517,13 @@ class Mamba2Mixer(_Mixer):
 
 class MLSTMMixer(_Mixer):
     defs = staticmethod(mlstm_defs)
+    state_defs = staticmethod(mlstm_state_defs)
     fn = staticmethod(mlstm_forward)
 
 
 class SLSTMMixer(_Mixer):
     defs = staticmethod(slstm_defs)
+    state_defs = staticmethod(slstm_state_defs)
     fn = staticmethod(slstm_forward)
     # the recurrence reads these in f32 whatever the compute dtype:
     # ServeEngine leaves them uncast

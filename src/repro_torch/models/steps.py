@@ -169,19 +169,23 @@ def _compress(grads: dict, names: list, mode: str, mesh=None,
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: int, *, use_ep=False,
-                      mesh=None, sp_constraint=None):
+                      mesh=None, sp_constraint=None, cache_dtype=None):
     """prefill_step(model, tokens[, valid_from, positions, memory]) ->
     (state, last_logits); ``state`` is the decode state from
     ``transformer.init_state`` (a KV cache of ``capacity`` slots, the SSM
-    layers' zeros) on the tokens' device.  ``memory`` feeds the cross
-    layers (the reference's ``prefill_step`` takes it third; here it is a
-    keyword, after the serving engine's positional arguments)."""
+    layers' zeros) on the tokens' device: on a model ``mesh`` of more
+    than one rank, this rank's block of it (``init_state(mesh=)``), which
+    the decode steps then take; ``cache_dtype`` as ``init_state``'s.
+    ``memory`` feeds the cross layers (the
+    reference's ``prefill_step`` takes it third; here it is a keyword,
+    after the serving engine's positional arguments)."""
 
     @torch.inference_mode()
     def prefill_step(model, tokens, valid_from=None, positions=None,
                      memory=None):
         b = tokens.shape[0]
-        state = transformer.init_state(cfg, b, capacity, tokens.device)
+        state = transformer.init_state(cfg, b, capacity, tokens.device,
+                                       mesh=mesh, cache_dtype=cache_dtype)
         logits, new_state, _ = model(tokens, positions=positions, state=state,
                                      valid_from=valid_from, memory=memory,
                                      use_ep=use_ep, mesh=mesh,
@@ -194,8 +198,10 @@ def make_prefill_step(cfg: ModelConfig, capacity: int, *, use_ep=False,
 def make_decode_step(cfg: ModelConfig, *, use_ep=False, mesh=None):
     """decode_step(model, state, token, pos[, valid_from]) -> (state,
     logits); token: (B, 1) int; pos: (B, 1) positions.  The state's KV
-    cache is written in place.  As the reference's, it passes no memory:
-    a decode step's cross layers attend to zeros."""
+    cache is written in place; on a model ``mesh`` of more than one rank
+    the state is this rank's block (``make_prefill_step``'s), as the
+    reference's decode cell lays it out.  As the reference's, it passes
+    no memory: a decode step's cross layers attend to zeros."""
 
     @torch.inference_mode()
     def decode_step(model, state, token, pos, valid_from=None):

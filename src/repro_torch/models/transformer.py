@@ -34,15 +34,15 @@ from torch.utils.checkpoint import (
 from repro_torch.common.config import BlockKind, FFNKind, ModelConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.mesh import (AxisEnv, Spec, axis_size,
-                                          block_shape, block_slices,
-                                          shard_leaf)
+                                          batch_spec, block_shape,
+                                          block_slices, shard_leaf)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     DenseFFN, ParamDef, ParamTree, RMSNorm, abstract_tree, count_tree,
     dense_ffn_defs, embedding_defs, init_tree, rms_norm, softcap, spec_tree,
-    stack_defs, tree_leaves, tree_map, use_block, whole_leaves,
+    read_blocks, stack_defs, tree_leaves, tree_map,
 )
 
 # the SSM kinds: (parameter defs, state defs, mixer module)
@@ -82,6 +82,9 @@ def block_defs(cfg: ModelConfig, kind: str, ffn: str) -> ParamTree:
     return defs
 
 
+_CACHED = (BlockKind.ATTN.value, BlockKind.MLA.value)   # bf16 caches
+
+
 def block_state_defs(cfg: ModelConfig, kind: str, batch: int, capacity: int) -> dict:
     if kind == BlockKind.ATTN.value:
         return attn.gqa_cache_defs(cfg, batch, capacity)
@@ -111,18 +114,21 @@ class Block(nn.Module):
     each call, not written in place; a cross block's is passed through.
 
     Over a model mesh of more than one rank every leaf holds its
-    ``param_specs`` block (an MoE FFN: ``moe.moe_param_specs``).  Without
-    a state the block runs as the train cell's ``shard_map`` runs it,
-    written by hand: ``x`` (B, S, d) is whole on every rank between
-    blocks; the block takes this rank's rows of the batch (``_Rows``),
-    runs the norm, the attention's heads (GQA, MLA, cross-attention over
-    ``memory``, which then holds this rank's rows) or the mixer (its
-    leaves gathered whole), then the dense FFN's chunk of d_ff
-    (``forward_tp``), and the residuals on them, and gathers them back
-    whole; an MoE FFN runs on the whole ``x`` (``moe_block_sharded``).
-    The norm weights, whole on every rank, sum their cotangents over every
-    axis (``collectives.pvary``).  A call with a state gathers the leaves
-    whole and computes as a world of one."""
+    ``param_specs`` block (an MoE FFN: ``moe.moe_param_specs``) and the
+    block runs as the train cell's ``shard_map`` runs it, written by
+    hand: ``x`` (B, S, d) is whole on every rank between blocks; the
+    block takes this rank's rows of the batch (``_Rows``), runs the norm,
+    the attention's heads (GQA, MLA, cross-attention over ``memory``,
+    which then holds this rank's rows) or the mixer (its leaves gathered
+    whole), then the dense FFN's chunk of d_ff (``forward_tp``), and the
+    residuals on them, and gathers them back whole; an MoE FFN runs on
+    the whole ``x`` (``moe_block_sharded``).  The norm weights, whole on
+    every rank, sum their cotangents over every axis
+    (``collectives.pvary``).  A call with a state (a prefill, a decode
+    step) runs the same way against this rank's block of the state
+    (``init_state(mesh=)``: its rows, its KV heads or latent columns, its
+    mixer state's ``tp`` columns), and keeps the weights it gathers until
+    a block changes, so that a decode step moves no weight bytes."""
 
     def __init__(self, cfg: ModelConfig, kind: str, ffn: str, weights: dict,
                  compute_dtype: torch.dtype):
@@ -152,52 +158,59 @@ class Block(nn.Module):
         (B, 1, d) when None, as in the reference.  With ``use_ep`` and a
         model ``mesh`` an MoE FFN runs ``moe_block_sharded`` (the
         reference's EP branch)."""
-        sharded = mesh is not None and mesh.size > 1
-        rows = _Rows(x.shape[0], mesh, env) if sharded and state is None \
-            else None
-        whole = {"mesh": mesh} if sharded else {}
+        if mesh is not None and mesh.size > 1:
+            return self._forward_mesh(x, positions, state, valid_from, valid,
+                                      memory, use_ep, mesh, env)
         new_state = state
-        if rows is not None:
-            xs = rows.take(x)
-            h = rms_norm(xs, rows.replicated(self.ln1.weight), self.ln1.eps)
-            if self.kind == BlockKind.CROSS_ATTN.value:
-                if memory is None:
-                    memory = xs.new_zeros((xs.shape[0], 1, xs.shape[-1]))
-                h = self.attn.forward_tp(h, memory, mesh, env)
-            elif self.kind in _SSM:
-                h = self.mixer.forward_rows(h, rows.index(valid), mesh, env)
-            else:
-                h = self.attn.forward_tp(h, rows.index(positions), mesh, env,
-                                         rows.index(valid_from))
-            xs = xs + h
+        h = self.ln1(x)
+        if self.kind == BlockKind.CROSS_ATTN.value:
+            if memory is None:
+                memory = x.new_zeros((x.shape[0], 1, x.shape[-1]))
+            h = self.attn(h, memory)
+        elif self.kind in _SSM:
+            h, new_state = self.mixer(h, state, valid)
         else:
-            h = self.ln1(x)
-            if self.kind == BlockKind.CROSS_ATTN.value:
-                if memory is None:
-                    memory = x.new_zeros((x.shape[0], 1, x.shape[-1]))
-                h = self.attn(h, memory, **whole)
-            elif self.kind in _SSM:
-                h, new_state = self.mixer(h, state, valid, **whole)
-            else:
-                h, new_state = self.attn(h, positions, state, valid_from,
-                                         **whole)
-            x = x + h
+            h, new_state = self.attn(h, positions, state, valid_from)
+        x = x + h
         aux = None
         if isinstance(self.ffn, moe_lib.MoEFFN):
-            if rows is not None:
-                x, rows = rows.gather(xs), None
             h, aux = self.ffn(self.ln2(x), use_ep, mesh, env)
             x = x + h
         elif self.ffn is not None:
-            if rows is not None:
-                h = rms_norm(xs, rows.replicated(self.ln2.weight),
-                             self.ln2.eps)
-                xs = xs + self.ffn.forward_tp(h, mesh, env)
-            else:
-                x = x + self.ffn(self.ln2(x), mesh if sharded else None)
-        if rows is not None:
-            x = rows.gather(xs)
+            x = x + self.ffn(self.ln2(x))
         return x, new_state, aux
+
+    def _forward_mesh(self, x, positions, state, valid_from, valid, memory,
+                      use_ep, mesh, env):
+        rows = _Rows(x.shape[0], mesh, env)
+        keep = state is not None
+        new_state = state
+        xs = rows.take(x)
+        h = rms_norm(xs, rows.replicated(self.ln1.weight), self.ln1.eps)
+        if self.kind == BlockKind.CROSS_ATTN.value:
+            if memory is None:
+                memory = xs.new_zeros((xs.shape[0], 1, xs.shape[-1]))
+            h = self.attn.forward_tp(h, memory, mesh, env, keep)
+        elif self.kind in _SSM:
+            if keep:
+                h, new_state = self.mixer.forward_state(
+                    h, state, rows.index(valid), mesh, env)
+            else:
+                h = self.mixer.forward_rows(h, rows.index(valid), mesh, env)
+        else:
+            h, new_state = self.attn.forward_tp(
+                h, rows.index(positions), mesh, env, rows.index(valid_from),
+                state)
+        xs = xs + h
+        aux = None
+        if isinstance(self.ffn, moe_lib.MoEFFN):
+            x = rows.gather(xs)
+            h, aux = self.ffn(self.ln2(x), use_ep, mesh, env)
+            return x + h, new_state, aux
+        if self.ffn is not None:
+            h = rms_norm(xs, rows.replicated(self.ln2.weight), self.ln2.eps)
+            xs = xs + self.ffn.forward_tp(h, mesh, env, keep)
+        return rows.gather(xs), new_state, aux
 
 
 class _Rows:
@@ -497,8 +510,8 @@ def _map_sd(fn, tree):
     ``state_defs`` tree (``None`` kept)."""
     if tree is None:
         return None
-    return {k: _map_sd(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+    return {k: _map_sd(fn, v) if isinstance(v, dict) or v is None
+            else fn(v) for k, v in tree.items()}
 
 
 def state_specs(cfg: ModelConfig, env: AxisEnv, batch: int, capacity: int,
@@ -519,17 +532,60 @@ def abstract_state(cfg: ModelConfig, batch: int, capacity: int) -> dict:
                    state_defs(cfg, batch, capacity))
 
 
-def init_state(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
+def layer_state_specs(cfg: ModelConfig, mesh, batch: int) -> list:
+    """Each layer's ``state_specs`` on ``mesh`` for a batch of ``batch``
+    (replicated over the batch axes where it does not divide them,
+    ``batch_spec``), one dict a layer in layer order: a scanned layer's
+    leaf spec without its leading entry."""
+    env = AxisEnv.from_mesh(mesh)
+    specs = state_specs(cfg, env, batch, 1,
+                        batch_logical=batch_spec(env, mesh, batch))
+    segs = plan_segments(cfg)
+    out = [specs["prefix"][str(i)] for i in range(len(segs.prefix))]
+    for _ in range(segs.n_periods):
+        out += [{n: Spec(*sp[1:]) for n, sp in specs["scanned"][str(j)].items()}
+                for j in range(len(segs.period))]
+    return out
+
+
+def init_state(cfg: ModelConfig, batch: int, capacity: int, device,
+               mesh=None, cache_dtype=None) -> list:
     """A zeroed decode state on ``device``: one dict a layer, in layer
     order (``state_defs``' leaves unstacked), ``index`` a Python int.  An
     SSM layer's zeros are the prefill's initial state (mLSTM's m = 0,
-    sLSTM's n = 0), as the reference's ``init_state``."""
-    def mk(sd):
-        return 0 if sd[0] == () else torch.zeros(
-            sd[0], dtype=getattr(torch, sd[2]), device=device)
-    return [{name: mk(sd) for name, sd in
-             block_state_defs(cfg, k, batch, capacity).items()}
-            for k, _ in plan_segments(cfg).layers]
+    sLSTM's n = 0), as the reference's ``init_state``.  On a model
+    ``mesh`` of more than one rank each rank allocates only its block of
+    every leaf (``layer_state_specs``), as the reference's decode cell
+    lays the state out; ``index`` is the same on every rank.  With
+    ``cache_dtype`` (a dtype's name) the KV and latent caches take it in
+    place of the reference's bf16: a test's witness of a mesh's
+    arithmetic, since a bf16 cache element (and the bf16 attention output
+    read from it) that a mesh's order of sums rounds the other way moves
+    an f32 model's logits by ~10⁻⁴ of max |logit|."""
+    specs = (layer_state_specs(cfg, mesh, batch)
+             if mesh is not None and mesh.size > 1 else None)
+
+    def mk(kind, sd, sp):
+        if sd[0] == ():
+            return 0
+        shape = sd[0] if sp is None else block_shape(mesh, sd[0], sp)
+        dtype = (cache_dtype if cache_dtype and kind in _CACHED
+                 else sd[2])
+        return torch.zeros(shape, dtype=getattr(torch, dtype), device=device)
+    return [{name: mk(k, sd, None if specs is None else specs[i][name])
+             for name, sd in block_state_defs(cfg, k, batch, capacity).items()}
+            for i, (k, _) in enumerate(plan_segments(cfg).layers)]
+
+
+def state_blocks(cfg: ModelConfig, state: list, mesh) -> list:
+    """This rank's block of every leaf of a whole decode ``state`` (one
+    dict a layer, ``init_state``'s layout) on ``mesh``: the state a
+    prefill over the mesh would have left on this rank."""
+    batch = next(t.shape[0] for layer in state for t in layer.values()
+                 if torch.is_tensor(t))
+    specs = layer_state_specs(cfg, mesh, batch)
+    return [{n: shard_leaf(mesh, t, specs[i][n]) if torch.is_tensor(t) else t
+             for n, t in layer.items()} for i, layer in enumerate(state)]
 
 
 # ---------------------------------------------------------------------------
@@ -592,9 +648,12 @@ class Transformer(nn.Module):
         memory stays in rows for the cross layers); the logits are this
         rank's vocabulary columns of its rows, gathered whole before
         ``softcap`` (a tied table is gathered once for both uses, so both
-        gradients reach its block).  With a state every leaf is gathered
-        whole and the call computes as a world of one.  ``use_ep`` runs
-        the MoE FFNs expert-parallel over the mesh
+        gradients reach its block).  With a state, which then holds this
+        rank's blocks (``init_state(mesh=)``), the blocks run as without
+        one against their blocks of it, and every weight gathered is kept
+        until its block changes; the embedding and the unembedding are
+        gathered whole (kept) and run on every row.  ``use_ep`` runs the
+        MoE FFNs expert-parallel over the mesh
         (``moe.moe_block_sharded``).
         ``sp_constraint``, when given, is applied to the activations after
         the embedding and after each block, where the reference
@@ -602,17 +661,17 @@ class Transformer(nn.Module):
         cdt = self.compute_dtype
         env = AxisEnv.from_mesh(mesh) if mesh is not None else None
         sharded = mesh is not None and mesh.size > 1
-        split = sharded and state is None
-        whole = sharded and not split       # a state: the leaves gathered
-        defs = model_defs(self.cfg) if whole else None
+        keep = sharded and state is not None    # the gathers kept
+        split = sharded and not keep            # the tp embedding, logits
+        defs = model_defs(self.cfg) if keep else None
         emb = self.embed["embedding"]
-        if whole:
-            emb = whole_leaves(self.embed, defs["embed"], mesh,
-                               cdt)["embedding"]
+        if keep:
+            emb = read_blocks(self.embed, defs["embed"], mesh, env, cdt,
+                              keep=True)["embedding"]
         table = None          # this rank's vocabulary block, d gathered
-        rows = _Rows(tokens.shape[0], mesh, env) if split else None
+        rows = _Rows(tokens.shape[0], mesh, env) if sharded else None
         if tokens.ndim == 3:
-            x = self._project("frontend_proj", tokens, rows, defs, mesh, env)
+            x = self._project("frontend_proj", tokens, rows, mesh, env, keep)
             if rows is not None:
                 x = rows.gather(x)
         elif split:
@@ -620,9 +679,9 @@ class Transformer(nn.Module):
         else:
             x = nn.functional.embedding(tokens, emb).to(cdt)
         if memory is not None and self.memory_proj is not None:
-            # split: this rank's rows, as its cross layers read them
-            memory = self._project("memory_proj", memory, rows, defs, mesh,
-                                   env)
+            # over a mesh: this rank's rows, as its cross layers read them
+            memory = self._project("memory_proj", memory, rows, mesh, env,
+                                   keep)
         elif memory is not None and rows is not None:
             memory = rows.take(memory)
         b, s = x.shape[:2]
@@ -658,25 +717,26 @@ class Transformer(nn.Module):
         elif self.unembed is None:
             logits = torch.matmul(x, emb.to(cdt).T)
         else:
-            unembed = (whole_leaves(self, {"unembed": defs["unembed"]}, mesh,
-                                    cdt)["unembed"] if whole
+            unembed = (read_blocks(self, {"unembed": defs["unembed"]}, mesh,
+                                   env, cdt, keep=True)["unembed"] if keep
                        else self.unembed)
             logits = torch.matmul(x, unembed.to(cdt))
         logits = softcap(logits.float(), self.cfg.logits_softcap)
         return logits, new_state, self._aux_total(auxes, x.device)
 
-    def _project(self, name, embeds, rows, defs, mesh, env):
+    def _project(self, name, embeds, rows, mesh, env, keep=False):
         """``embeds`` (B, N, F) through the (F, d) projection ``name``
         (``frontend_proj``, ``memory_proj``) in the compute dtype.  Over a
-        model mesh with no state this rank's rows of them through its
-        ``(None, fsdp)`` block with d gathered (``layers.use_block``); with
-        a state, the whole leaf (``whole_leaves``)."""
-        cdt, w = self.compute_dtype, getattr(self, name)
-        if rows is not None:
+        model mesh (``rows``) this rank's rows of them through its
+        ``(None, fsdp)`` block with d gathered (``layers.read_blocks``;
+        with ``keep``, a call with a state, the gathered leaf kept)."""
+        cdt = self.compute_dtype
+        if rows is None:
+            w = getattr(self, name)
+        else:
             embeds = rows.take(embeds)
-            w = use_block(w, model_defs(self.cfg)[name], mesh, env, cdt)
-        elif defs is not None:
-            w = whole_leaves(self, {name: defs[name]}, mesh, cdt)[name]
+            w = read_blocks(self, {name: model_defs(self.cfg)[name]}, mesh,
+                            env, cdt, keep=keep)[name]
         return torch.einsum("bnf,fd->bnd", embeds.to(cdt), w.to(cdt))
 
     def _logits_tp(self, x, table, mesh, env):
