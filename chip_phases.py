@@ -6,10 +6,12 @@ sub-phases of phase 11 alone, on the card:
     python3 chip_phases.py e              # (e) MLA, cross, SSM leaves
     python3 chip_phases.py f              # (f) the decode state's blocks
     python3 chip_phases.py b              # (b) deepseek-v2 EP decode
+    python3 chip_phases.py g              # (g) the padded dry-run cell
 
 (a) is ``Smoke._ep_smoke``, (b) ``Smoke._ep_full_width``; (d), (e) and
 (f) are ``Smoke._tp_world`` with that letter alone, (d) at ``DENSE_TP_LAYERS`` or at each depth of ``--layers``
-(where a failed gate is printed and the next depth run).  Each
+(where a failed gate is printed and the next depth run); (g) is
+``Smoke._padded_cell`` with the host's dry-run.  Each
 sub-phase prints its line as ``chip_smoke.py`` does, then its wall; the
 last line is the card's name and power limit."""
 
@@ -27,7 +29,7 @@ import chip_smoke  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sub", nargs="+", choices=("a", "b", "d", "e", "f"))
+    ap.add_argument("sub", nargs="+", choices=("a", "b", "d", "e", "f", "g"))
     ap.add_argument("--layers", default=None,
                     help="comma-separated depths for (d)")
     args = ap.parse_args()
@@ -51,6 +53,8 @@ def main():
                     ctx._ep_smoke()
                 elif sub == "b":
                     ctx._ep_full_width()
+                elif sub == "g":
+                    ctx._padded_cell()
                 else:
                     ctx._tp_world(sub)
             except SystemExit as e:

@@ -135,8 +135,8 @@ Phases, in order; any failure exits non-zero before the last line:
      float32 with a capacity that drops nothing (E / k), the cache flips
      read from MLA's ``ckv``/``kr``, router ids that differ counted; (b)
      ``launch.serve --arch deepseek-v2-236b --smoke --device cuda``: 192
-     tokens; (c) deepseek-v2-236b at full width cut to 4 of its 60 layers
-     (13 302 912 000 parameters) and llama4-maverick-400b-a17b cut to 2 of
+     tokens; (c) deepseek-v2-236b at full width cut to 2 of its 60 layers
+     (5 358 679 040 parameters) and llama4-maverick-400b-a17b cut to 2 of
      48 (18 553 267 200), bf16, each leaf drawn on the card in f32 and
      rounded as it is drawn: init s and peak memory, the launcher's 16
      requests x 12 new tokens on 8 slots (wall, tok/s, dropped choices a
@@ -161,8 +161,8 @@ Phases, in order; any failure exits non-zero before the last line:
      must differ from prefill without), bf16: init s and peak, the
      launcher's 16 requests in process, prefill ms a wave and of 8 x 256
      tokens, decode ms a step (events), device ms and busy share against
-     the bytes bound; (d) zamba2 prefill 1 x 1024 tokens (4 chunks)
-     and xlstm 1 x 512, and decode one, in float32 compute and bf16: the
+     the bytes bound; (d) zamba2 prefill 1 x 512 tokens (2 chunks)
+     and xlstm 1 x 256, and decode one, in float32 compute and bf16: the
      first layer's state within 1e-4 of a prefill of all n + 1 (f32); the
      decode against that prefill and against a full forward recorded
      (the random models keep the forward, which starts mLSTM and sLSTM
@@ -202,8 +202,8 @@ Phases, in order; any failure exits non-zero before the last line:
      weights nudged one ulp)), ``moe_ffn_ep_replicated`` called
      directly, and on the card the block's decode against
      ``moe_ffn_dense``; (b)
-     deepseek-v2-236b at full width (4 of 60 layers, bf16) over (1, 2)
-     against world 1's ``moe_ffn_dense``, each MoE call against world
+     deepseek-v2-236b at full width (``EP_FULL_LAYERS`` of 60 layers,
+     bf16) over (1, 2) against world 1's ``moe_ffn_dense``, each MoE call against world
      1's layer on the rank's own input (a decode's expert sums in the EP
      decode's order) and every step's logits against world 1 run with
      the rank's MoE outputs (``_ep_full_width``; its ranks run
@@ -230,7 +230,15 @@ Phases, in order; any failure exits non-zero before the last line:
      ``CACHE_FULL`` at full width cut in depth, a prefill of 8 x 512
      into 1024 slots and 16 decode steps against world 1
      (``_cache_tp_rank``): state bytes and decode ms a step a rank
-     against world 1's, the ledger a step by axis;
+     against world 1's, the ledger a step by axis; (g) a dry-run cell
+     run for real with its heads padded: ``launch.cells.build_cell``'s
+     starcoder2-3b ``decode_32k`` cell (2 layers, f32, KV heads 2 -> 4)
+     over (1, 4), four ranks sharing the card, on world-1 weights padded
+     by ``tp_pad_weights``: a prefill into the cell's state and 4 decode
+     steps through its step against the unpadded world 1 on the card
+     (``_padded_cell_rank``); and ``python -m repro_torch.launch.dryrun``
+     on the host for one cell of each kind on both production meshes
+     (``DRYRUN_CELLS``, meta tensors, no card), each record printed;
  12. the reference's invariants over the port, each sub-phase's wall and
      launches printed (counts set to 0 just before it, read just after):
      (a) ``python -m repro_torch.analysis --check`` exits 0 on the port's
@@ -309,9 +317,11 @@ ZOO_DENSE = ("phi4-mini-3.8b", "mistral-nemo-12b", "minitron-8b",
              "starcoder2-3b", "musicgen-medium")
 ZOO_ARCH = "phi4-mini-3.8b"
 # phase 9's MoE configs, smoke size card against CPU, and at full width cut
-# in depth to fit one card: (arch, layers, parameters); deepseek-v2 first
+# in depth to fit one card: (arch, layers, parameters); deepseek-v2 first,
+# its dense layer 0 and one MoE layer (4 layers until phase 11 (g) came,
+# cut for time)
 ZOO_MOE = ("llama4-maverick-400b-a17b", "deepseek-v2-236b")
-ZOO_MOE_FULL = (("deepseek-v2-236b", 4, 13_302_912_000),
+ZOO_MOE_FULL = (("deepseek-v2-236b", 2, 5_358_679_040),
                 ("llama4-maverick-400b-a17b", 2, 18_553_267_200))
 # phase 9's SSM and cross-attention configs, smoke size card against CPU,
 # and at full width (phases 9 and 10 (c)): (arch, layers, parameters);
@@ -331,8 +341,12 @@ BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}
 # phase 9 (SSM) (d): the long prefill's length per config, cut from 4096
 # to keep the script under 1000 s (xlstm's sLSTM is a Python loop over
 # time, on the card ≈ 15 s a 4096-token pass); zamba2's from 2048 to 1024
-# when phase 11 (e) came
-LONG_PREFILL = {"zamba2-1.2b": 1024, "xlstm-350m": 512}
+# when phase 11 (e) came; when phase 11 (g) came, zamba2's to 512 and
+# xlstm's from 512 to 256
+LONG_PREFILL = {"zamba2-1.2b": 512, "xlstm-350m": 256}
+# phase 11 (b): deepseek-v2's depth over (1, 2), its dense layer 0 and one
+# MoE layer (4 until phase 11 (g) came, cut for time)
+EP_FULL_LAYERS = 2
 # phase 11 (d): phi4-mini's depth over two ranks sharing the card (a layer
 # 100.7 M parameters, the embedding 614.6 M; 16 B a parameter in training);
 # cut from 4 to make room for (e) (the taught gates read alike at 2, 4 and
@@ -394,6 +408,21 @@ CACHE_FULL = (
     ("zamba2-1.2b", 6, ("1x2",)),
     ("xlstm-350m", 2, ("1x2",)))
 CACHE_PREFILL, CACHE_CAPACITY, CACHE_STEPS = 512, 1024, 16
+# phase 11 (g): the padded decode cell over (1, 4): (arch, shape, layers),
+# a prompt of PADDED_PROMPT tokens into the cell's state (its batch of 128
+# and 32768 slots, f32 caches) and PADDED_STEPS decode steps; in f32
+# compute, so that the mesh's order of sums alone sets its distance from
+# world 1
+PADDED_CELL = ("starcoder2-3b", "decode_32k", 2)
+PADDED_PROMPT, PADDED_STEPS = 8, 4
+# and the host's dry-run, one cell of each kind at one period on both
+# production meshes: dense train, MoE + MLA decode, SSM long_500k, cross
+# prefill, padded decode
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k"),
+                ("deepseek-v2-236b", "decode_32k"),
+                ("zamba2-1.2b", "long_500k"),
+                ("llama-3.2-vision-90b", "prefill_32k"),
+                ("starcoder2-3b", "decode_32k"))
 
 
 def fail(msg):
@@ -2780,7 +2809,7 @@ class Smoke:
         """The MoE configs through ``ServeEngine`` on the card: (a) card
         against CPU for llama4-maverick's and deepseek-v2's smoke configs;
         (b) ``launch.serve --arch deepseek-v2-236b --smoke``; (c)
-        deepseek-v2-236b at full width (4 of 60 layers) and then
+        deepseek-v2-236b at full width (2 of 60 layers) and then
         llama4-maverick-400b-a17b at full width (2 of 48), each timed; (d)
         decode against a full forward at full width with no drops; (e) a
         padded wave against solo runs (recorded).  The path runs none of
@@ -2862,7 +2891,7 @@ class Smoke:
         zamba2-1.2b and xlstm-350m; (c) zamba2-1.2b whole, xlstm-350m at 12
         of 24 layers and llama-3.2-vision-90b at 10 of 100, at full width, each
         timed, llama-vision with a memory; (d) a long prefill (zamba2
-        1024 tokens, xlstm 512), then a decode, against a full forward.
+        512 tokens, xlstm 256), then a decode, against a full forward.
         The path runs none
         of the three hand-written kernels: counts set to 0 before it and
         read after must stay 0."""
@@ -2907,8 +2936,8 @@ class Smoke:
 
     def _long_prefill(self, cfg, model, n):
         """(d) 1 x ``n`` random tokens prefilled (``LONG_PREFILL``: zamba2
-        1024, 4 chunks of 256, the inter-chunk scan at full width; xlstm
-        512, its sLSTM a Python loop over time), then token n + 1
+        512, 2 chunks of 256, the inter-chunk scan at full width; xlstm
+        256, its sLSTM a Python loop over time), then token n + 1
         decoded, on the served weights (cast at use), against the last
         logits of a full forward of the n + 1 (the reference's decode
         test) and of a prefill of the n + 1 into a fresh state; and the
@@ -3413,8 +3442,8 @@ class Smoke:
         """The model mesh over ranks sharing the card (gloo,
         ``launch/ep_world.py``): (a) the two MoE smoke configs at (1, 2)
         and (2, 2), card against CPU in one world; (b) deepseek-v2-236b at
-        full width (4 of 60 layers) over (1, 2) against world 1's
-        ``moe_ffn_dense``; (c) a world-1 checkpoint restored onto (1, 2)
+        full width (``EP_FULL_LAYERS`` of 60 layers) over (1, 2) against
+        world 1's ``moe_ffn_dense``; (c) a world-1 checkpoint restored onto (1, 2)
         and ``launch.train --mesh single`` at world 1; (d) the dense GQA
         leaves as their ``param_specs`` blocks: phi4-mini's train step
         over (1, 2) and (2, 1) at smoke size card against CPU and at full
@@ -3423,19 +3452,23 @@ class Smoke:
         vision, zamba2, xlstm); (f) the decode state as its
         ``state_specs`` blocks, a prefill and decode steps against each
         rank's blocks (phi4-mini, deepseek-v2, zamba2, xlstm; smoke card
-        against CPU and full width against world 1).  No rank launches a
-        join kernel (each rank's counts, read as its job ends, and this
-        process's)."""
+        against CPU and full width against world 1); (g) a dry-run cell
+        with its heads padded, run for real over (1, 4), and the host's
+        dry-run records (its processes started first, so that they run
+        beside (a)-(f)).  No rank launches a join kernel (each rank's
+        counts, read as its job ends, and this process's)."""
         torch = self.torch
         t0 = time.perf_counter()
         self.reset_launches()
         self.ep_launches = []
+        self._start_dryrun()
         self.ep = {"smoke": self._ep_smoke()}
         self.ep["full_width"] = self._ep_full_width()
         tp = self._tp_world()
         self.ep["checkpoint"], self.ep["dense_tp"], self.ep["leaves_tp"] = \
             tp["c"], tp["d"], tp["e"]
         self.ep["cache_tp"] = tp["f"]
+        self.ep["padded_cell"] = self._padded_cell()
         launches = [self.read_launches()] + self.ep_launches
         check(not any(v for l in launches for v in l.values()),
               f"phase 11 launched a join kernel: {launches}")
@@ -3651,7 +3684,8 @@ class Smoke:
         return row
 
     def _ep_full_width(self):
-        """(b) deepseek-v2-236b at full width cut to 4 of 60 layers, bf16,
+        """(b) deepseek-v2-236b at full width cut to ``EP_FULL_LAYERS`` of
+        60 layers, bf16,
         weights from seed 0 drawn on the card: world 1 (``moe_ffn_dense``,
         in this process) and a (1, 2) world (``_ep_full_width_rank``: each
         rank draws every leaf whole, in turn, keeping its 80 of the 160
@@ -3696,7 +3730,7 @@ class Smoke:
         collective calls and bytes by axis and route."""
         np, torch = self.np, self.torch
         from repro_torch.models import moe, steps, transformer
-        arch, layers = "deepseek-v2-236b", 4
+        arch, layers = "deepseek-v2-236b", EP_FULL_LAYERS
         cfg = _full_width_cfg(arch, layers)
         mo = cfg.moe
         no_drop = mo.num_experts / mo.top_k
@@ -4170,6 +4204,115 @@ class Smoke:
                         "step_ledger_card": card["step_ledgers"][-1]})
             out[mesh] = rows
         return out
+
+    def _start_dryrun(self):
+        """Start ``python -m repro_torch.launch.dryrun`` for each cell of
+        ``DRYRUN_CELLS`` on both production meshes at one period, one
+        process a cell, on the host (meta tensors: no card), its records
+        under ``build/dryrun_smoke``."""
+        out = os.path.join(ROOT, "build", "dryrun_smoke")
+        env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+        self.dryrun = {"out": out, "t0": time.perf_counter(), "procs": [
+            (arch, shape, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", "both", "--layers",
+                 "period", "--out-dir", out], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for arch, shape in DRYRUN_CELLS]}
+
+    def _padded_cell(self):
+        """(g) ``launch.cells.build_cell`` of ``PADDED_CELL`` (starcoder2-3b
+        ``decode_32k`` at 2 layers, f32 compute, f32 caches) run for real
+        over (1, 4): four ranks sharing the card, each drawing the whole
+        model on the card from seed 0 (world 1's weights), which
+        ``build_cell`` pads for tp 4 (``tp_pad_weights``: KV heads 2 -> 4,
+        each duplicated into two slots) and keeps its blocks of; a prompt
+        of ``PADDED_PROMPT`` tokens prefilled into the cell's state (its
+        batch of 128 and 32768 slots), then ``PADDED_STEPS`` decode steps
+        through the cell's step (``_padded_cell_rank``).  Rank 0 then
+        runs the unpadded model's world-1 decode on the card, and again on
+        weights nudged one ulp (its floor): every rank's logits within
+        max(1e-4, twice that floor) of max |logit| of world 1's.  Then
+        the host's dry-run (``_start_dryrun``): every process exits 0 and
+        each cell's record on both meshes is ``ok``, its argument GiB a
+        rank, flops and collective bytes printed."""
+        np = self.np
+        from repro_torch.configs import get_config
+        arch, shape, layers = PADDED_CELL
+        from repro_torch.common.config import SHAPES
+        sc = SHAPES[shape]
+        rng = np.random.default_rng(29)
+        toks = rng.integers(0, get_config(arch).vocab_size,
+                            (sc.global_batch, PADDED_PROMPT + PADDED_STEPS))
+        cell = {"arch": arch, "full": True, "layers": layers,
+                "overrides": {"dtype": "float32"}, "seed": 0,
+                "shape": (sc.name, sc.seq_len, sc.global_batch, sc.kind),
+                "cache_dtype": "float32", "prompt": toks[:, :PADDED_PROMPT],
+                "decode": toks[:, PADDED_PROMPT:]}
+        t0 = time.perf_counter()
+        ranks = self._world((1, 4), _padded_cell_rank, {"cell": cell},
+                            timeout=600)
+        wall = time.perf_counter() - t0
+        w1 = ranks[0]["world1"]
+
+        def rel(a, b):
+            return float(np.abs(a - b).max() / np.abs(b).max())
+        floor = rel(w1["nudged"], w1["plain"])
+        tol = max(1e-4, 2 * floor)
+        rows = []
+        for r, res in enumerate(ranks):
+            err = rel(res["logits"], w1["plain"])
+            check(np.isfinite(res["logits"]).all() and err <= tol,
+                  f"(g) padded {arch} {shape} over (1, 4) rank {r} vs world "
+                  f"1: logits {err} of max |logit| (tolerance {tol})")
+            rows.append({"logits_err": err, "heads": res["heads"],
+                         "state_bytes": res["state_bytes"],
+                         "state_vs_world1": res["state_bytes"]
+                         / w1["state_bytes"],
+                         "decode_ms_a_step": res["decode_ms"],
+                         "wall_s": res["wall_s"]})
+        out = {"world_wall_s": wall, "tol": tol, "world1_floor": floor,
+               "world1_decode_ms_a_step": w1["decode_ms"],
+               "world1_state_bytes": w1["state_bytes"], "ranks": rows}
+        log(f"phase 11 (g): {arch} {shape} cell, {layers} layers, f32, its "
+            f"heads padded (24, 2) -> {rows[0]['heads']} over (1, 4) vs "
+            f"the unpadded world 1 ({self.smi}): " + json.dumps(out))
+        out["dryrun"] = self._collect_dryrun()
+        return out
+
+    def _collect_dryrun(self):
+        """Wait for ``_start_dryrun``'s processes; each exits 0 and each
+        cell's record on both meshes is ``ok``: its argument GiB a rank,
+        kept GiB, flops and collective bytes by axis printed."""
+        if not getattr(self, "dryrun", None):
+            self._start_dryrun()
+        recs = {}
+        for arch, shape, proc in self.dryrun["procs"]:
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"(g) launch.dryrun {arch} {shape} "
+                  f"exited {proc.returncode}: {out[-1000:]} {err[-3000:]}")
+            for kind in ("single", "multi"):
+                with open(os.path.join(self.dryrun["out"], kind,
+                                       f"{arch}__{shape}.json")) as f:
+                    rec = json.load(f)
+                check(rec["status"] == "ok",
+                      f"(g) dry-run {kind} {arch} {shape}: {rec}")
+                m = rec["memory"]
+                recs[f"{kind} {arch} {shape}"] = {
+                    "status": rec["status"], "layers": rec["layers"],
+                    "heads": rec["heads"]["cell"],
+                    "argument_gib": m["argument_bytes"] / 2 ** 30,
+                    "kept_gib": m["kept_bytes"] / 2 ** 30,
+                    "flops": rec["flops_per_device"],
+                    "collective_bytes": rec["collective_bytes_per_device"],
+                    "by_axis": {k: v["bytes"] for k, v in
+                                rec["collective_by_axis"].items()},
+                    "trace_s": rec["trace_s"]}
+        wall = time.perf_counter() - self.dryrun["t0"]
+        log(f"phase 11 (g): launch.dryrun on the host, {len(recs)} records "
+            f"(meta, no card; started {wall:.1f} s ago): " + json.dumps(recs))
+        self.dryrun = None
+        return recs
 
     def _tp_world(self, subs="cdef"):
         """Sub-phases (c), (d), (e) and / or (f) in one world of two ranks
@@ -4886,6 +5029,69 @@ def _cache_tp_rank(mesh, dev, p):
             mesh, {k: meshes[k] for k in q["meshes"]}, dev,
             _full_width_cfg(q["arch"], q["layers"]), q)
     out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _padded_cell_rank(mesh, dev, p):
+    """One rank of phase 11 (g)'s (1, 4) world: the padded cell of
+    ``p["cell"]`` run for real (``ep_world``'s ``cell`` job: the whole
+    model drawn on the card, padded, this rank's blocks kept, a prefill
+    into the cell's state and the decode steps), its decode ms a step;
+    then, the ranks' states freed, rank 0 runs the unpadded model's
+    world-1 prefill and decode on the card, plain and on weights nudged
+    one ulp."""
+    import torch
+    from repro_torch.launch.ep_world import _job_cell
+    q = p["cell"]
+    row = _job_cell(mesh, dev, q)
+    row["decode_ms"] = row["decode_s"] * 1e3 / q["decode"].shape[1]
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if mesh.rank == 0:
+        row["world1"] = _padded_world1(dev, q)
+    torch.distributed.barrier()
+    return row
+
+
+def _padded_world1(dev, q):
+    """The unpadded model of phase 11 (g)'s cell at world 1 on the card:
+    the same prefill and decode steps, on the weights drawn from seed 0
+    (``plain``) and on them nudged one ulp (``nudged``); the logits, the
+    state's bytes and decode ms a step."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ep_world import _np, whole_weights
+    from repro_torch.models import steps, transformer
+    cfg = dataclasses.replace(get_config(q["arch"]), num_layers=q["layers"],
+                              **q["overrides"])
+    _, capacity, b, _ = q["shape"]
+    out = {}
+    for name, nudge in (("plain", None), ("nudged", 1)):
+        model = transformer.Transformer(cfg, whole_weights(
+            cfg, dev, dict(q, nudge=nudge)))
+        prompt = torch.as_tensor(q["prompt"]).to(dev)
+        toks = torch.as_tensor(q["decode"]).to(dev)
+        s = prompt.shape[1]
+        state, last = steps.make_prefill_step(cfg, capacity,
+                                              cache_dtype="float32")(
+            model, prompt)
+        logits = [_np(last)]
+        decode = steps.make_decode_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(toks.shape[1]):
+            pos = torch.full((b, 1), s + j, dtype=torch.int32, device=dev)
+            state, lg = decode(model, state, toks[:, j:j + 1], pos)
+            logits.append(_np(lg))
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / toks.shape[1]
+        out["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for layer in state for t in layer.values()
+                                 if torch.is_tensor(t))
+        out[name] = np.stack(logits)
+        del model, state
+        torch.cuda.empty_cache()
     return out
 
 

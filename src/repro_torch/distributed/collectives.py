@@ -50,6 +50,14 @@ Gloo has no reduce-scatter on every torch version either: it is an
 ``batch``, ...), op and route; a call over one rank moves nothing and is
 not booked.
 
+Over an ``AbstractMesh`` (``distributed/mesh.py``: one rank's place on a
+mesh, with no world) the same four calls are shape-only: each returns a
+``meta`` tensor of the shape and dtype the real call returns, and books
+the label, op, ranks and bytes the real call books, under the route
+``meta``; the autograd functions below call them in their backward too,
+so a step traced on ``meta`` books what rank 0 of a real world books.  A
+tensor that is not ``meta`` raises there: the trace would allocate.
+
 **Ordered calls (the fleet on a world of several ranks).**  Two queries
 that run at once on every rank would meet in their collectives in a
 different order on each rank, and gloo pairs a ``send`` with a ``recv`` on
@@ -76,7 +84,10 @@ import torch
 
 GROUP_KINDS = ("inner", "cross", "pull")
 PAYLOADS = ("counts", "pairs")
-ROUTES = ("gloo", "host")
+# the routes a call's bytes take: gloo as they are, or staged through the
+# host; and ``meta``, a call over an ``AbstractMesh`` that moves nothing
+WIRE_ROUTES = ("gloo", "host")
+ROUTES = WIRE_ROUTES + ("meta",)
 # the turns a fleet query takes from its order: a gather over a group, a
 # pair transfer to the coordinator, a band-step enqueue
 ORDERED_OPS = ("all_gather", "pairs", "band")
@@ -266,13 +277,16 @@ class AxisLedger:
             row["bytes"] += int(nbytes)
 
     def summary(self) -> dict:
-        """Calls and bytes by axis label and by route, and every row."""
+        """Calls and bytes by axis label and by route (``gloo`` and
+        ``host`` always, ``meta`` where booked), and every row."""
         with self._lock:
             rows = {k: dict(v) for k, v in self._rows.items()}
-        by_axis, by_route = {}, {r: {"calls": 0, "bytes": 0} for r in ROUTES}
+        by_axis = {}
+        by_route = {r: {"calls": 0, "bytes": 0} for r in WIRE_ROUTES}
         for (axis, _op, route, _n), r in rows.items():
             a = by_axis.setdefault(axis, {"calls": 0, "bytes": 0})
-            for d in (a, by_route[route]):
+            for d in (a, by_route.setdefault(route, {"calls": 0,
+                                                     "bytes": 0})):
                 d["calls"] += r["calls"]
                 d["bytes"] += r["bytes"]
         return {"by_axis": by_axis, "by_route": by_route,
@@ -286,11 +300,24 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _group(mesh, axes):
     """(process group or None, this rank's members in flattened order,
-    their positions in the group's rank order)."""
+    their positions in the group's rank order); no group over an
+    ``AbstractMesh``."""
     members = mesh.axis_members(axes)
-    group = mesh.axis_group(axes) if len(members) > 1 else None
+    group = (mesh.axis_group(axes) if len(members) > 1
+             and not getattr(mesh, "abstract", False) else None)
     order = sorted(members)
     return group, members, [order.index(m) for m in members]
+
+
+def _shaped(x: torch.Tensor, mesh, shape, label: str, op: str, nbytes: int,
+            n: int) -> torch.Tensor:
+    """A call over an ``AbstractMesh``: a ``meta`` tensor of ``shape`` in
+    x's dtype, the call booked as the real one books it."""
+    if not x.is_meta:
+        raise RuntimeError(f"{op} over {label} on {mesh!r} got a tensor on "
+                           f"{x.device}: an abstract mesh's trace is meta")
+    mesh.axis_ledger.record(label, op, "meta", nbytes, n)
+    return torch.empty(shape, dtype=x.dtype, device="meta")
 
 
 def axis_all_reduce(x: torch.Tensor, mesh, axes, label: str,
@@ -299,8 +326,11 @@ def axis_all_reduce(x: torch.Tensor, mesh, axes, label: str,
     (a new tensor; ``x`` is kept).  A CUDA tensor goes to gloo on the
     card."""
     group, members, _ = _group(mesh, axes)
-    if group is None:
+    if len(members) == 1:
         return x.clone()
+    if group is None:
+        return _shaped(x, mesh, x.shape, label, "all_reduce", _nbytes(x),
+                       len(members))
     import torch.distributed as dist
     out = x.contiguous().clone()
     dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
@@ -319,8 +349,13 @@ def axis_all_gather(x: torch.Tensor, mesh, axes, dim: int, label: str
     """Every member's ``x`` concatenated on ``dim`` in flattened-index
     order over ``axes`` (tiled)."""
     group, members, pos = _group(mesh, axes)
-    if group is None:
+    if len(members) == 1:
         return x
+    if group is None:
+        shape = list(x.shape)
+        shape[dim] *= len(members)
+        return _shaped(x, mesh, shape, label, "all_gather",
+                       _nbytes(x) * len(members), len(members))
     import torch.distributed as dist
     h, route = _stage(x.contiguous())
     parts = [torch.empty_like(h) for _ in members]
@@ -335,10 +370,12 @@ def axis_all_to_all(x: torch.Tensor, mesh, axes, label: str) -> torch.Tensor:
     """Tiled all-to-all on dim 0: ``x``'s j-th chunk goes to the j-th
     member (flattened order), and the result's j-th chunk came from it."""
     group, members, pos = _group(mesh, axes)
-    if group is None:
+    if len(members) == 1:
         return x
-    import torch.distributed as dist
     n = len(members)
+    if group is None:
+        return _shaped(x, mesh, x.shape, label, "all_to_all", _nbytes(x), n)
+    import torch.distributed as dist
     h, route = _stage(x.contiguous())
     chunks = list(h.chunk(n))
     send = [None] * n
@@ -359,14 +396,19 @@ def axis_reduce_scatter(x: torch.Tensor, mesh, axes, dim: int, label: str
     an ``all_reduce`` and a slice (gloo lacks the op on some versions),
     booked as a reduce-scatter with the ``all_reduce``'s bytes."""
     group, members, _ = _group(mesh, axes)
-    if group is None:
+    if len(members) == 1:
         return x
+    n = len(members)
+    if group is None:
+        shape = list(x.shape)
+        shape[dim] //= n
+        return _shaped(x, mesh, shape, label, "reduce_scatter", _nbytes(x),
+                       n)
     import torch.distributed as dist
     out = x.contiguous().clone()
     dist.all_reduce(out, group=group)
     mesh.axis_ledger.record(label, "reduce_scatter", "gloo", _nbytes(out),
-                            len(members))
-    n = len(members)
+                            n)
     step = out.shape[dim] // n
     i = mesh.axis_index(axes)
     return out.narrow(dim, i * step, step).contiguous()

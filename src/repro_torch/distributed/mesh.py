@@ -108,8 +108,24 @@ class JoinMesh:
     a 16-rank (2, 4, 2) world creates 28 more groups: only the model zoo's
     meshes ask for them."""
 
+    abstract = False
+
     def __init__(self, axis_names: tuple, sizes: tuple, *,
                  axis_groups: bool = False):
+        n = world_size()
+        self._place(axis_names, sizes, world_rank())
+        if self.size != n:
+            raise ValueError(
+                f"mesh {self.shape} has {self.size} ranks but the world has "
+                f"{n} devices: a mesh must cover the world exactly")
+        if n > 1:
+            self._make_groups()
+            if axis_groups:
+                self._make_axis_groups()
+
+    def _place(self, axis_names: tuple, sizes: tuple, rank: int) -> None:
+        """The shape, ``rank``'s coordinates and the ranks of its groups,
+        with empty ledgers and no process group."""
         if len(axis_names) != len(sizes) or min(sizes) < 1:
             raise ValueError(f"mesh axes {axis_names} and sizes {sizes}")
         self.axis_names = tuple(axis_names)
@@ -117,12 +133,7 @@ class JoinMesh:
         self.size = 1
         for s in sizes:
             self.size *= int(s)
-        n = world_size()
-        if self.size != n:
-            raise ValueError(
-                f"mesh {self.shape} has {self.size} ranks but the world has "
-                f"{n} devices: a mesh must cover the world exactly")
-        self.rank = world_rank()
+        self.rank = rank
         self.coords = self._coords_of(self.rank)      # pod-major
         self.n_pods = self.shape.get("pod", 1)
         self.n_inner = self.size // self.n_pods
@@ -138,10 +149,6 @@ class JoinMesh:
         self.cross_ranks = [p * self.n_inner + self.inner_index
                             for p in range(self.n_pods)]
         self.pull_ranks = list(range(self.size))
-        if n > 1:
-            self._make_groups()
-            if axis_groups:
-                self._make_axis_groups()
 
     def _make_groups(self) -> None:
         """Every rank creates every group of more than one rank, in the
@@ -308,12 +315,50 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> JoinMesh:
     return JoinMesh(tuple(axis_names), tuple(shape), axis_groups=True)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> JoinMesh:
+class AbstractMesh(JoinMesh):
+    """A mesh of a shape and one rank's place on it, with no world and no
+    process group: what a rank of a ``JoinMesh`` of that shape knows of
+    its mesh (``shape``, ``axis_names``, ``axis_size``, ``axis_index``,
+    ``axis_members``), and its ledgers.  Over it the model mesh's
+    collectives move nothing: each returns a ``meta`` tensor of the shape
+    and dtype the real call returns and books its bytes in
+    ``axis_ledger`` as the real call does, under the route ``meta``
+    (``distributed/collectives.py``).  So a step of the model zoo traced
+    on the ``meta`` device over it is that rank's step with no card and no
+    peer: the production mesh of 256 or 512 ranks in one process
+    (``launch/dryrun.py``).
+
+    Every rank's blocks have the same shape, because ``_block`` refuses a
+    split that is not even, and every rank makes the same calls with the
+    same shapes (SPMD): so rank 0's trace stands for every rank."""
+
+    abstract = True
+
+    def __init__(self, axis_names: tuple, sizes: tuple, rank: int = 0):
+        self._place(axis_names, sizes, rank)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on the mesh {self.shape}")
+
+    def axis_group(self, axes: Sequence[str]):
+        if self.axis_size(axes) == 1:
+            return None
+        raise ValueError(f"{self!r} is abstract: it has no process groups")
+
+    def __repr__(self) -> str:
+        return (f"AbstractMesh({self.shape}, rank {self.rank} at "
+                f"{self.coords})")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         abstract: bool = False) -> JoinMesh:
     """The production mesh: (16, 16) over ("data", "model"), one pod of
     256 ranks; or (2, 16, 16) over ("pod", "data", "model").  The world
-    must have exactly that many ranks."""
+    must have exactly that many ranks; with ``abstract`` it is rank 0 of
+    an ``AbstractMesh`` of that shape, in a world of any size."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if abstract:
+        return AbstractMesh(axes, shape)
     need = 1
     for s in shape:
         need *= s

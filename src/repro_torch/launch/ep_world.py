@@ -27,6 +27,10 @@ The jobs (``payload`` keys in each docstring):
   * ``save``: a model's tree gathered from the ranks' blocks and written
     by rank 0;
   * ``shard``: ``shard_leaf`` blocks of an array under several specs;
+  * ``cell``: a cell of ``launch/cells.py`` (its heads padded for the
+    mesh) on whole weights drawn from a seed: its step traced as the
+    dry-run traces it, a train step, or a prefill into its state and its
+    decode steps;
   * ``many``: several of these in turn on one world (a world costs a few
     seconds to spawn).
 """
@@ -340,6 +344,107 @@ def _job_model(mesh, dev, p: dict) -> dict:
     return row
 
 
+def whole_weights(cfg, dev, p: dict) -> dict:
+    """A whole model's weights (world 1, keyed by parameter name) drawn
+    from ``seed`` by a generator on ``dev``, every cross layer's gate set
+    to ``gate`` where given, the reference tree ``nudge_``d by ``nudge``
+    (a seed) where given."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_map
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(p.get("seed", 0)), dev)
+    weights = {n: t.detach() for n, t in model.named_parameters()}
+    if p.get("gate") is not None:
+        weights = {n: torch.full_like(t, p["gate"]) if n.endswith("attn.gate")
+                   else t for n, t in weights.items()}
+    if p.get("nudge") is not None:
+        tree = tree_map(lambda t: t.clone(),
+                        transformer.tree_from_weights(cfg, weights))
+        nudge_(sorted_leaves(tree), p["nudge"])
+        weights = transformer.weights_from_tree(cfg, tree)
+    return weights
+
+
+def _job_cell(mesh, dev, p: dict) -> dict:
+    """A cell of ``launch/cells.py`` run for real on this rank: ``arch``'s
+    smoke config (``_cfg``; its full config with ``full``, cut to
+    ``layers``) at ``shape`` (a ``ShapeConfig``'s fields), built by
+    ``build_cell`` on ``whole_weights`` (padded for the mesh's ``tp`` and
+    this rank's blocks kept).  With ``trace``: the cell's step once on its
+    own arguments, as ``launch.dryrun.trace_cell`` traces it (the flops,
+    the ledger's rows).  A train cell with ``train`` {tokens, labels}: one
+    step (``memory`` feeds the cross layers; TrainConfig with ``tcfg``'s
+    overrides), its metrics, ledger and ``m`` gathered whole (the padded
+    config's reference tree).  A decode cell with ``prompt``: the prompt
+    prefilled into the cell's state (``memory`` where given), then each
+    column of ``decode`` through the cell's step, the logits of every
+    call (each read to the host, so the walls wait for the card) and the
+    walls of the whole and of the decode steps."""
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import AxisEnv
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.models import steps, transformer
+    if p.get("full"):
+        cfg = dataclasses.replace(get_config(p["arch"]),
+                                  **p.get("overrides", {}))
+        if p.get("layers"):
+            cfg = dataclasses.replace(cfg, num_layers=p["layers"])
+    else:
+        cfg = _cfg(p)
+    sc = ShapeConfig(*p["shape"])
+    cell = cells.build_cell(p["arch"], sc, mesh, cfg_override=cfg,
+                            weights=whole_weights(cfg, dev, p), device=dev,
+                            cache_dtype=p.get("cache_dtype"))
+    row = {"coords": dict(mesh.coords),
+           "heads": [cell.cfg.num_heads, cell.cfg.num_kv_heads]}
+    if p.get("trace"):
+        got = dryrun.trace_cell(cell)
+        row.update(flops=got["flops"], rows=got["ledger"]["rows"],
+                   kept_bytes=got["kept_bytes"])
+        return row
+    model = cell.abstract_args[0]
+    memory = (None if p.get("memory") is None
+              else torch.as_tensor(p["memory"]).to(dev))
+    if cell.kind == "train":
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in p["train"].items()}
+        if memory is not None:
+            batch["memory"] = memory
+        # the train cell's step as build_cell makes it, at tcfg's overrides
+        step = steps.make_train_step(cell.cfg, TrainConfig(
+            **p.get("tcfg", {})), use_ep=cell.use_ep, mesh=mesh)
+        opt = cell.abstract_args[1]
+        mesh.axis_ledger.reset()
+        opt, met = step(model, opt, batch)
+        specs = transformer.local_specs(cell.cfg, AxisEnv.from_mesh(mesh))
+        row.update(metrics={k: float(v) for k, v in met.items()},
+                   train_ledger=mesh.axis_ledger.summary(),
+                   m=_whole_tree(cell.cfg, opt["m"], mesh, specs))
+        return row
+    state = cell.abstract_args[1]
+    prompt = torch.as_tensor(p["prompt"]).to(dev)
+    b, s = prompt.shape
+    prefill = steps.make_prefill_step(cell.cfg, sc.seq_len,
+                                      use_ep=cell.use_ep, mesh=mesh)
+    t0 = time.perf_counter()
+    state, last = prefill(model, prompt, memory=memory, state=state)
+    logits = [_np(last)]
+    toks = torch.as_tensor(p["decode"]).to(dev)
+    t1 = time.perf_counter()
+    for j in range(toks.shape[1]):
+        pos = torch.full((b, 1), s + j, dtype=torch.int32, device=dev)
+        state, lg = cell.fn(model, state, toks[:, j:j + 1], pos)
+        logits.append(_np(lg))
+    row.update(logits=np.stack(logits), wall_s=time.perf_counter() - t0,
+               decode_s=time.perf_counter() - t1,
+               state_bytes=sum(t.numel() * t.element_size()
+                               for layer in state for t in layer.values()
+                               if torch.is_tensor(t)))
+    return row
+
+
 def _np_state(state: list) -> list:
     """A decode state's tensors (one dict a layer) as numpy copies."""
     return [{n: np.array(_np(t)) for n, t in layer.items()
@@ -447,7 +552,8 @@ def _job_many(mesh, dev, p: dict) -> list:
 
 
 JOBS = {"ep_fn": _job_ep_fn, "model": _job_model, "restore": _job_restore,
-        "save": _job_save, "shard": _job_shard, "many": _job_many}
+        "save": _job_save, "shard": _job_shard, "many": _job_many,
+        "cell": _job_cell}
 
 
 def _resolve(job):

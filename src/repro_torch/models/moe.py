@@ -82,6 +82,15 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``ids`` (every id below n), as
+    int64: ``torch.bincount(ids, minlength=n)``, which has no ``meta``
+    kernel, as a scatter-add into n zeros."""
+    flat = ids.reshape(-1).long()
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def _router(params, x_flat, mo: MoEConfig):
     """x_flat: (T, d) -> weights (T, k), ids (T, k), aux_loss scalar."""
     logits = torch.einsum("td,de->te", x_flat.float(), params["router"].float())
@@ -94,7 +103,7 @@ def _router(params, x_flat, mo: MoEConfig):
     # load-balance loss (Switch): E * sum_e f_e * p_e, over every choice,
     # dropped ones too
     e = mo.num_experts
-    counts = torch.bincount(ids.reshape(-1), minlength=e).float()
+    counts = _counts(ids, e).float()
     frac_tokens = counts / torch.clamp(torch.sum(counts), min=1.0)
     frac_probs = torch.mean(probs, dim=0)
     aux = mo.router_aux_loss_coef * e * torch.sum(frac_tokens * frac_probs)
@@ -189,7 +198,7 @@ def moe_ffn_dense(params, x, cfg: ModelConfig, compute_dtype=torch.bfloat16,
     if stats is not None:
         with torch.no_grad():
             stats["ids"] = ids.detach()
-            stats["load"] = torch.bincount(flat_ids, minlength=mo.num_experts)
+            stats["load"] = _counts(flat_ids, mo.num_experts)
             stats["dropped"] = torch.sum(slot == mo.num_experts * capacity)
             stats["capacity"] = capacity
     return out, aux
@@ -216,8 +225,7 @@ def _local_stats(stats, ids, num_experts, dropped, capacity):
     if stats is not None:
         with torch.no_grad():
             stats["ids"] = ids.detach()
-            stats["load"] = torch.bincount(ids.reshape(-1),
-                                           minlength=num_experts)
+            stats["load"] = _counts(ids, num_experts)
             stats["dropped"] = dropped
             stats["capacity"] = capacity
 

@@ -170,22 +170,24 @@ def _compress(grads: dict, names: list, mode: str, mesh=None,
 
 def make_prefill_step(cfg: ModelConfig, capacity: int, *, use_ep=False,
                       mesh=None, sp_constraint=None, cache_dtype=None):
-    """prefill_step(model, tokens[, valid_from, positions, memory]) ->
-    (state, last_logits); ``state`` is the decode state from
+    """prefill_step(model, tokens[, valid_from, positions, memory,
+    state]) -> (state, last_logits); ``state`` is the decode state from
     ``transformer.init_state`` (a KV cache of ``capacity`` slots, the SSM
     layers' zeros) on the tokens' device: on a model ``mesh`` of more
     than one rank, this rank's block of it (``init_state(mesh=)``), which
     the decode steps then take; ``cache_dtype`` as ``init_state``'s.
     ``memory`` feeds the cross layers (the
     reference's ``prefill_step`` takes it third; here it is a keyword,
-    after the serving engine's positional arguments)."""
+    after the serving engine's positional arguments).  A ``state`` given
+    (a decode cell's, ``launch/cells.py``) is written in its place."""
 
     @torch.inference_mode()
     def prefill_step(model, tokens, valid_from=None, positions=None,
-                     memory=None):
+                     memory=None, state=None):
         b = tokens.shape[0]
-        state = transformer.init_state(cfg, b, capacity, tokens.device,
-                                       mesh=mesh, cache_dtype=cache_dtype)
+        if state is None:
+            state = transformer.init_state(cfg, b, capacity, tokens.device,
+                                           mesh=mesh, cache_dtype=cache_dtype)
         logits, new_state, _ = model(tokens, positions=positions, state=state,
                                      valid_from=valid_from, memory=memory,
                                      use_ep=use_ep, mesh=mesh,

@@ -383,7 +383,9 @@ def mesh_specs(cfg: ModelConfig, mesh) -> ParamTree:
     does not divide raises ``ValueError`` naming the leaf, its shape, its
     spec and the mesh: the attention heads (GQA's query and KV heads,
     MLA's and cross-attention's) must split evenly over ``tp``, which
-    takes their padding (``tp_pad_config``, not ported yet)."""
+    takes their padding first (``repro_torch.launch.cells.tp_pad_config``;
+    the weights that keep the function are its ``tp_pad_weights``', and
+    ``build_cell`` pads before it asks for the specs)."""
     specs = local_specs(cfg, AxisEnv.from_mesh(mesh))
     spec_of = dict(tree_leaves(specs))
     for path, d in tree_leaves(model_defs(cfg)):
@@ -397,7 +399,7 @@ def mesh_specs(cfg: ModelConfig, mesh) -> ParamTree:
                     f"on the mesh {dict(mesh.shape)}: dim {dim} of {n} over "
                     f"{sp.axes(dim)} ({ways} ways); a config whose heads "
                     f"tp does not divide needs them padded with "
-                    f"tp_pad_config (not ported yet)")
+                    f"repro_torch.launch.cells.tp_pad_config")
     return specs
 
 
