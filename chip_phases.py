@@ -1,6 +1,8 @@
 """Phase 1 of ``chip_smoke.py`` (the card and the kernels' build), then
-sub-phases of phase 11 alone, on the card:
+the threshold sweep's phases or sub-phases of phase 11 alone, on the card:
 
+    python3 chip_phases.py s              # phase 3, then phase 5's direct-
+                                          # route timings
     python3 chip_phases.py a d            # (a) EP MoE smoke, (d) dense TP
     python3 chip_phases.py d --layers 2,4 # (d) at each depth in turn
     python3 chip_phases.py e              # (e) MLA, cross, SSM leaves
@@ -8,6 +10,7 @@ sub-phases of phase 11 alone, on the card:
     python3 chip_phases.py b              # (b) deepseek-v2 EP decode
     python3 chip_phases.py g              # (g) the padded dry-run cell
 
+(s) is ``Smoke.phase3_threshold_sweep`` and ``Smoke.time_direct_sweeps``;
 (a) is ``Smoke._ep_smoke``, (b) ``Smoke._ep_full_width``; (d), (e) and
 (f) are ``Smoke._tp_world`` with that letter alone, (d) at ``DENSE_TP_LAYERS`` or at each depth of ``--layers``
 (where a failed gate is printed and the next depth run); (g) is
@@ -29,7 +32,7 @@ import chip_smoke  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sub", nargs="+", choices=("a", "b", "d", "e", "f", "g"))
+    ap.add_argument("sub", nargs="+", choices=("s", "a", "b", "d", "e", "f", "g"))
     ap.add_argument("--layers", default=None,
                     help="comma-separated depths for (d)")
     args = ap.parse_args()
@@ -49,7 +52,10 @@ def main():
                 chip_smoke.DENSE_TP_LAYERS = layers
             t = time.perf_counter()
             try:
-                if sub == "a":
+                if sub == "s":
+                    ctx.phase3_threshold_sweep()
+                    ctx.time_direct_sweeps()
+                elif sub == "a":
                     ctx._ep_smoke()
                 elif sub == "b":
                     ctx._ep_full_width()

@@ -33,7 +33,9 @@ Phases, in order; any failure exits non-zero before the last line:
      theta = 0.4) on a 2048-row strip against all of R;
   3. threshold_sweep, both routes, counts exactly equal to the plain
      versions: the direct route at k = 700000, C in {2, 5}, G = 4096 random
-     thresholds with pad rows and +-inf columns; the ranked route against
+     thresholds with pad rows and +-inf columns, on every f32 edge at C in
+     {1, 8, 9, 15, 32} (``direct_fixture``) and on a 15-clause
+     ``candidate_grid`` at k = 700000 (G = 2**15); the ranked route against
      its plain version and the brute-force one on the edge fixture (+-inf,
      NaN, +-0.0, duplicate rows, invalid rows; G = 48 and G = 1) and on
      ``candidate_grid`` grids at k = 700000 for C = 2..6, with and without
@@ -54,7 +56,9 @@ Phases, in order; any failure exits non-zero before the last line:
      library yardstick.  The sweep: the ranked route at the main-path
      launch, on the C = 5 grid (k 700000, unpadded and padded) and on
      2**14 bins with rows spread over all of them, the
-     direct route at the wide case, and the host wall of one
+     direct route at the wide case (C 2 and 5) and on the 15-clause grid
+     (with ptxas's registers and spills of the kernel that ran), and the
+     host wall of one
      ``ops.sweep_counts`` call at the main-path shape (route choice and
      host-to-device copies included);
   6. serving on products 2800 x 2800 (``serve_join --size 8``), launch
@@ -493,6 +497,10 @@ class Smoke:
         self.kernels = []
         self.main_launches = {}
         self.sweep_timed = []     # (what, args, kw) of ranked cases to time
+        self.sweep_direct = {}    # what -> args of direct-route cases to time
+        # one FP32 lane operation a lane a clock: the FP32 FLOP rate counts
+        # each FMA lane-clock as two
+        self.lane_ops = self.flops / 2
 
     # -- helpers -----------------------------------------------------------
     def time_ms(self, fn, runs=7, reps=None):
@@ -635,18 +643,23 @@ class Smoke:
     def sweep_bound_ms(self, k, c, g, axes=None):
         """(ms, bound_by, ops, bytes): each input read once, the output
         written once.  Direct route: G * k * (C + 2) compare/AND/add
-        operations.  Ranked route: per sample and per threshold row, a
-        binary search of ceil(log2(u_c + 1)) compares and a multiply-add a
-        clause, plus log2(u_c) adds a bin a clause for the prefix."""
+        operations, each one lane-instruction, over the card's FP32 lane
+        rate (``lane_ops``: half the FP32 FLOP rate, which counts an FMA
+        twice).  Ranked route: per sample and per threshold row, a binary
+        search of ceil(log2(u_c + 1)) compares and a multiply-add a clause,
+        plus log2(u_c) adds a bin a clause for the prefix, over the FP32
+        FLOP rate."""
         nbytes = 4 * (k * (c + 2) + g * c + 2 * g)
         if axes is None:
             ops = g * k * (c + 2)
+            ops_s = ops / self.lane_ops
         else:
             u = self.np.diff(axes[1].numpy()).tolist()
             bins = int(self.np.prod(u))
             ops = (k + g) * sum(int(n).bit_length() + 2 for n in u) + \
                 bins * sum(max(int(n) - 1, 0).bit_length() for n in u)
-        ops_s, bytes_s = ops / self.flops, nbytes / self.bw
+            ops_s = ops / self.flops
+        bytes_s = nbytes / self.bw
         return (1e3 * max(ops_s, bytes_s),
                 "operations" if ops_s >= bytes_s else "bytes", ops, nbytes)
 
@@ -803,35 +816,72 @@ class Smoke:
                         f", mean {err.mean() if ok.any() else float('nan'):.3g}")
 
     def phase3_threshold_sweep(self):
-        np, torch = self.np, self.torch
+        from repro_torch.launch.bench_sweep import K, wide_case
+        torch = self.torch
         for c in (2, 5):
-            rng = np.random.default_rng(100 + c)
-            k, g = 700000, 4096
-            cd = rng.uniform(0, 1, size=(k, c)).astype(np.float32)
-            cd[rng.random(size=(k, c)) < 0.01] = np.inf
-            labels = (rng.random(k) < 0.05).astype(np.float32)
-            kp = -(-k // 512) * 512
-            cd = np.pad(cd, ((0, kp - k), (0, 0)))
-            labels = np.pad(labels, (0, kp - k))
-            valid = np.pad(np.ones(k, np.float32), (0, kp - k))
-            th = rng.uniform(0, 1, size=(g, c)).astype(np.float32)
-            th[0], th[1], th[2, 0] = np.inf, -np.inf, np.inf
-            args = [torch.from_numpy(a).to(self.dev)
-                    for a in (cd, labels, valid, th)]
+            args = [torch.from_numpy(a).to(self.dev) for a in wide_case(c)]
             got = self.sk.threshold_sweep(*args)
             want = self.sref.threshold_sweep_ref(args[0], args[1], args[3],
                                                  args[2])
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"threshold_sweep C={c}: counts "
                   f"differ in {int((got != want).sum())} entries")
-            check(int(got[0, 1]) == k and int(got[1, 1]) == 0,
+            check(int(got[0, 1]) == K and int(got[1, 1]) == 0,
                   "threshold_sweep: pad rows or -inf rows miscounted")
-            if c == 5:
-                self.sweep_wide = args
+            self.sweep_direct[f"k 700416, C {c}, G 4096 random"] = args
         log("phase 3: threshold_sweep direct route, k=700000 (padded 700416),"
             " G=4096 random thresholds, C in {2, 5}: counts exactly equal")
+        self._sweep_direct_cases()
         self._sweep_ranked_cases()
         self._sweep_route_choice()
+
+    def _sweep_direct_cases(self):
+        """The direct kernel against its plain version, counts exactly
+        equal, one launch each: every f32 edge at C in {1, 8, 9, 15, 32}
+        (``direct_fixture``: NaN, +-0.0, +-inf, k 1037 padded, 2048 pad
+        rows at -inf), and a 15-clause ``candidate_grid`` at k 700000
+        (2**15 rows, as ``ops.sweep`` pads it: 700416 sample rows;
+        ``bench_sweep.grid_case``, which ``grid_fixture(215, 700000, 15,
+        False)`` equals)."""
+        from repro_torch.data.sweep_fixtures import direct_fixture
+        from repro_torch.launch.bench_sweep import grid_case
+        np, torch = self.np, self.torch
+        cases = {f"edge fixture C={c}": direct_fixture(c, seed=c)
+                 for c in (1, 8, 9, 15, 32)}
+        cases["candidate_grid C=15"] = grid_case()
+        for what, arrays in cases.items():
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+                    for a in arrays]
+            self.reset_launches()
+            got = self.sk.threshold_sweep(*args)
+            launched = self.sk.launches["threshold_sweep_direct"]
+            want = self.sref.threshold_sweep_ref(args[0], args[1], args[3],
+                                                 args[2])
+            torch.cuda.synchronize()
+            check(launched == 1, f"{what}: the direct kernel was not "
+                  f"launched once: {self.sk.launches}")
+            check(torch.equal(got, want), f"{what}: the direct kernel "
+                  f"differs from the plain version in "
+                  f"{int((got != want).sum())} entries")
+            log(f"phase 3: threshold_sweep direct route, {what}: k "
+                f"{args[0].shape[0]}, G {args[3].shape[0]}, counts equal to "
+                f"the plain version (max sel {int(got[:, 1].max())})")
+            if what.startswith("candidate_grid"):
+                self.sweep_direct["k 700416, C 15, G 32768 candidate_grid"] \
+                    = args
+
+    def _direct_ptxas(self, c):
+        """ptxas's lines (registers, spills) for the direct kernel that runs
+        C clauses: ``sweep_kernel<C>`` up to 16 clauses, else the next
+        multiple of 4."""
+        slots = c if c <= 16 else -(-c // 4) * 4
+        lines, keep = [], False
+        for line in self.build.ptxas_report("threshold_sweep"):
+            if "Compiling entry function" in line:
+                keep = f"sweep_kernelILi{slots}E" in line
+            elif keep:
+                lines.append(line)
+        return lines
 
     def sweep_inputs(self, cd, labels, valid, thetas):
         """Card tensors and the ranked route's axes of numpy inputs."""
@@ -1058,10 +1108,7 @@ class Smoke:
             routes[f"ranked, {what}"] = row
             log(f"phase 5: threshold_sweep ranked route, {what}: k "
                 f"{args[0].shape[0]}, G {args[3].shape[0]}: " + json.dumps(row))
-        wide = self._time_sweep(self.sweep_wide, {}, one_call=True)
-        routes["direct, k 700416, C 5, G 4096 random"] = wide
-        log("phase 5: threshold_sweep direct route, k=700416, C=5, G=4096: "
-            + json.dumps(wide))
+        routes.update(self.time_direct_sweeps())
         self._sweep_counts_wall(sargs)
         self.kernels.append(dict(
             name="threshold_sweep", route="cuda",
@@ -1126,9 +1173,26 @@ class Smoke:
                 "library_ms": lib_ms, "ops": ops, "bytes": nbytes,
                 "tflops": ops / ms / 1e9, **single}
 
-    def _time_sweep(self, args, kw, one_call=False):
+    def time_direct_sweeps(self):
+        """Phase 3's direct-route cases timed (``_time_sweep``), each with
+        ptxas's lines for the kernel that ran and its share of the bound."""
+        rows = {}
+        for what, args in self.sweep_direct.items():
+            row = self._time_sweep(args, {}, one_call=True, plain_runs=3)
+            row["ptxas"] = self._direct_ptxas(args[0].shape[1])
+            # over the device time, or the events' where the profiler lost
+            # a record (a memset's, at the 15-clause grid)
+            row["bound_fraction"] = row["bound_ms"] / (row["device_ms"]
+                                                       or row["ms"])
+            rows[f"direct, {what}"] = row
+            log(f"phase 5: threshold_sweep direct route, {what}: "
+                + json.dumps(row))
+        return rows
+
+    def _time_sweep(self, args, kw, one_call=False, plain_runs=5):
         """Events, one-call and device time of the sweep's route (``axes``
-        in ``kw``: ranked), its bound and its plain versions' times."""
+        in ``kw``: ranked), its bound and its plain versions' times (median
+        of ``plain_runs``)."""
         k, c = args[0].shape
         g = args[3].shape[0]
         axes = kw.get("axes")
@@ -1137,7 +1201,7 @@ class Smoke:
             self.sk.threshold_sweep(*args, **kw)
         ms = self.time_ms(kernel)
         plain_direct_ms = self.time_ms(lambda: self.sref.threshold_sweep_ref(
-            args[0], args[1], args[3], args[2]), runs=5)
+            args[0], args[1], args[3], args[2]), runs=plain_runs)
         row = {"route_name": "direct" if axes is None else "ranked", "ms": ms}
         if axes is None:
             row["plain_ms"] = plain_direct_ms

@@ -333,6 +333,13 @@ def plan_join(dataset, oracle, proposer, extractor, cfg: FDJConfig, *,
                     conjunct_order=conjunct_order)
 
 
+def needs_planes(plan: JoinPlan, cfg: FDJConfig) -> bool:
+    """Whether ``execute_join`` materializes ``plan``'s planes (step ⑦):
+    a degenerate plan needs them only for the Appx-C precision ladder."""
+    return bool((not plan.degenerate)
+                or (cfg.precision_target < 1.0 and plan.used_specs))
+
+
 def execute_join(dataset, oracle, extractor, cfg: FDJConfig, plan: JoinPlan,
                  *, plane_provider: Optional[Callable] = None,
                  ledger: Optional[CostLedger] = None,
@@ -362,9 +369,7 @@ def execute_join(dataset, oracle, extractor, cfg: FDJConfig, plan: JoinPlan,
 
     # --- 7. plane materialization ---------------------------------------------
     feats: Sequence = []
-    need_planes = (not plan.degenerate) or \
-        (cfg.precision_target < 1.0 and plan.used_specs)
-    if need_planes:
+    if needs_planes(plan, cfg):
         with current_tracer().span("extract", specs=len(plan.used_specs)):
             feats = provider(plan.used_specs, ledger)
 

@@ -57,92 +57,283 @@
 // up to C = 6 fits.
 //
 // Direct route (threshold_sweep_launch), for thresholds whose bin space
-// exceeds 2^14.  The Pallas kernel carries its sums across a sequential
-// k grid axis by revisiting its output block.  Hopper blocks run in no
-// fixed order, so nothing carries over between them: each block owns a
-// strip of 256 candidate rows (one per thread, its thresholds in
-// registers) and one chunk of k, stages the chunk's distances and a
-// packed valid/label code per row through shared memory (every thread
-// reads the same row: a broadcast), counts in registers, and adds its two
-// counts per row into an int32 (G, 2) output with atomicAdd.  Integer
-// atomics make the result exact and independent of block order; f32
-// counts would be exact only below 2^24.  Bound: instruction throughput,
-// about G * k * (C + 2) compare/AND/add operations (1.1e10 at G = 4096,
-// k = 7e5, C = 2); the inputs are read once per candidate strip and are
-// small beside that (k * (C + 2) * 4 bytes).
+// exceeds 2^14, such as a candidate_grid of C >= 15 clauses (2^C rows).
+// The Pallas kernel carries its sums across a sequential k grid axis by
+// revisiting its output block.  Hopper blocks run in no fixed order, so
+// nothing carries over between them: each block owns a strip of
+// threshold rows and a range of k, and adds its two counts per row into
+// the int32 (G, 2) output with atomicAdd (exact and independent of block
+// order, where f32 counts would be exact only below 2^24).
+//
+// What bounds it: the compares.  Each (threshold row, sample row) pair
+// needs C compares ANDed together and one conditional count, G * k *
+// (C + 2) lane operations by the usual count (2.0e10 at G 4096, k
+// 700 416, C 5).  The route's first kernel gave each thread one
+// threshold row, so every compare also paid a shared-memory load of the
+// sample's distance (a broadcast), and per sample a load, a select, a
+// shift and two adds: about 19 instructions for the bound's 7 at C 5,
+// with the load/store pipe setting the pace, and for C > 8 the
+// thresholds sat in shared memory too (two shared loads a compare).  This
+// kernel:
+//   * gives each thread R threshold rows (R = 8 up to C 8, 4 up to C 16,
+//     2 above), their C thresholds in registers for every C up to 32
+//     (C 17..32 run the next multiple of 4, the extra clauses +inf
+//     against distances of 0, which pass);
+//   * reads a staged sample row from shared memory once for its R rows,
+//     as float4 loads of a row padded to a multiple of 4 floats;
+//   * chains the C compares of a pair into one predicate (FSETP.LE.AND,
+//     written in PTX: ``Pair``) and adds the sample's code under it, an
+//     add that ptxas issues on the FMA pipe: code = valid | (valid &
+//     label) << 16, so one add counts both, the selected count in the low
+//     half and the positive count in the high half of one 32-bit
+//     register, emptied into 32-bit counts after every stage (a stage
+//     holds fewer than 2^16 rows, so neither half overflows);
+//   * stages sample rows through shared memory with cp.async, double
+//     buffered, so a stage's loads run under the previous stage's
+//     compares; a stage's valid and label floats become codes once, in
+//     place;
+//   * sizes the grid to the card: threshold strips of up to 256 threads
+//     times R rows (fewer threads when G is small, so no warp compares
+//     only pad rows), and as many k ranges as fill every SM with the
+//     blocks the occupancy calculator allows, and no more (one wave).
+// So a pair costs C compares on the ALU pipe and an add on the FMA pipe.
+// The compares set the pace: compute capability 9.0 issues 64 of them a
+// clock an SM (the CUDA programming guide's throughput table), half the
+// FP32 lane rate the G * k * (C + 2) count is held to, so this
+// formulation cannot pass G * k * C / (64 * 132 * clock): at 1.98 GHz
+// 0.858 ms at the wide case's C 5, against that count's 0.600 ms.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <utility>
 
 namespace {
 
-constexpr int kThreads = 256;          // candidate rows per block
-constexpr int kStaged = 1024;          // sample rows staged per step
-constexpr int kRowsPerBlock = 8192;    // sample rows owned by one block
 constexpr int kMaxClauses = 32;
-constexpr int kMaxUnrolled = 8;
+constexpr int kThreads = 256;            // the most threads a block
+constexpr int kStageBytes = 24 * 1024;   // one stage of staged sample rows
 
-// CT > 0: C known at compile time, thresholds in registers.
-// CT == 0: any C up to kMaxClauses, thresholds in shared memory.
+// Threshold rows a thread owns at C = ct: at most about 64 registers of
+// thresholds.
+__host__ __device__ constexpr int rows_per_thread(int ct) {
+  return ct <= 8 ? 8 : ct <= 16 ? 4 : 2;
+}
+// A staged sample row's stride in floats: its distances, padded to float4.
+__host__ __device__ constexpr int padded(int ct) { return (ct + 3) & ~3; }
+// Sample rows a stage holds (distances, valid and label), a multiple of 32.
+__host__ __device__ constexpr int stage_rows(int ct) {
+  return (kStageBytes / (4 * (padded(ct) + 2))) & ~31;
+}
+// The instantiation that runs C clauses: C itself up to 16, else the next
+// multiple of 4.
+constexpr int clause_slots(int c) { return c <= 16 ? c : (c + 3) & ~3; }
+
+// One (threshold row, sample row) pair of C clauses: acc += w if x[c] <=
+// t[c] for every c, as one predicate chain (setp.le, then setp.le.and)
+// guarding the add, so ptxas puts the add on the FMA pipe (IMAD.IADD) and
+// the compares alone on the ALU pipe.  Left to itself the compiler selects
+// w or 0 into a register (one more ALU instruction a pair) and adds those
+// in pairs.  Operands: %0 acc, %1 w, then x[c] and t[c] at %(2 + 2c) and
+// %(3 + 2c), so a clause's text does not depend on C (2 C + 2 operands).
+template <int C>
+struct Pair;
+#define FDJ_SETP0 "setp.le.f32 p, %2, %3;\n\t"
+#define FDJ_SETP(a, b) "setp.le.and.f32 p, %" #a ", %" #b ", p;\n\t"
+#define FDJ_CHAIN1 FDJ_SETP0
+#define FDJ_CHAIN2 FDJ_CHAIN1 FDJ_SETP(4, 5)
+#define FDJ_CHAIN3 FDJ_CHAIN2 FDJ_SETP(6, 7)
+#define FDJ_CHAIN4 FDJ_CHAIN3 FDJ_SETP(8, 9)
+#define FDJ_CHAIN5 FDJ_CHAIN4 FDJ_SETP(10, 11)
+#define FDJ_CHAIN6 FDJ_CHAIN5 FDJ_SETP(12, 13)
+#define FDJ_CHAIN7 FDJ_CHAIN6 FDJ_SETP(14, 15)
+#define FDJ_CHAIN8 FDJ_CHAIN7 FDJ_SETP(16, 17)
+#define FDJ_CHAIN9 FDJ_CHAIN8 FDJ_SETP(18, 19)
+#define FDJ_CHAIN10 FDJ_CHAIN9 FDJ_SETP(20, 21)
+#define FDJ_CHAIN11 FDJ_CHAIN10 FDJ_SETP(22, 23)
+#define FDJ_CHAIN12 FDJ_CHAIN11 FDJ_SETP(24, 25)
+#define FDJ_CHAIN13 FDJ_CHAIN12 FDJ_SETP(26, 27)
+#define FDJ_CHAIN14 FDJ_CHAIN13 FDJ_SETP(28, 29)
+#define FDJ_CHAIN15 FDJ_CHAIN14 FDJ_SETP(30, 31)
+#define FDJ_CHAIN16 FDJ_CHAIN15 FDJ_SETP(32, 33)
+#define FDJ_CHAIN17 FDJ_CHAIN16 FDJ_SETP(34, 35)
+#define FDJ_CHAIN18 FDJ_CHAIN17 FDJ_SETP(36, 37)
+#define FDJ_CHAIN19 FDJ_CHAIN18 FDJ_SETP(38, 39)
+#define FDJ_CHAIN20 FDJ_CHAIN19 FDJ_SETP(40, 41)
+#define FDJ_CHAIN21 FDJ_CHAIN20 FDJ_SETP(42, 43)
+#define FDJ_CHAIN22 FDJ_CHAIN21 FDJ_SETP(44, 45)
+#define FDJ_CHAIN23 FDJ_CHAIN22 FDJ_SETP(46, 47)
+#define FDJ_CHAIN24 FDJ_CHAIN23 FDJ_SETP(48, 49)
+#define FDJ_CHAIN25 FDJ_CHAIN24 FDJ_SETP(50, 51)
+#define FDJ_CHAIN26 FDJ_CHAIN25 FDJ_SETP(52, 53)
+#define FDJ_CHAIN27 FDJ_CHAIN26 FDJ_SETP(54, 55)
+#define FDJ_CHAIN28 FDJ_CHAIN27 FDJ_SETP(56, 57)
+#define FDJ_CHAIN29 FDJ_CHAIN28 FDJ_SETP(58, 59)
+#define FDJ_CHAIN30 FDJ_CHAIN29 FDJ_SETP(60, 61)
+#define FDJ_CHAIN31 FDJ_CHAIN30 FDJ_SETP(62, 63)
+#define FDJ_CHAIN32 FDJ_CHAIN31 FDJ_SETP(64, 65)
+#define FDJ_OPS1 "f"(x[0]), "f"(t[0])
+#define FDJ_OPS2 FDJ_OPS1, "f"(x[1]), "f"(t[1])
+#define FDJ_OPS3 FDJ_OPS2, "f"(x[2]), "f"(t[2])
+#define FDJ_OPS4 FDJ_OPS3, "f"(x[3]), "f"(t[3])
+#define FDJ_OPS5 FDJ_OPS4, "f"(x[4]), "f"(t[4])
+#define FDJ_OPS6 FDJ_OPS5, "f"(x[5]), "f"(t[5])
+#define FDJ_OPS7 FDJ_OPS6, "f"(x[6]), "f"(t[6])
+#define FDJ_OPS8 FDJ_OPS7, "f"(x[7]), "f"(t[7])
+#define FDJ_OPS9 FDJ_OPS8, "f"(x[8]), "f"(t[8])
+#define FDJ_OPS10 FDJ_OPS9, "f"(x[9]), "f"(t[9])
+#define FDJ_OPS11 FDJ_OPS10, "f"(x[10]), "f"(t[10])
+#define FDJ_OPS12 FDJ_OPS11, "f"(x[11]), "f"(t[11])
+#define FDJ_OPS13 FDJ_OPS12, "f"(x[12]), "f"(t[12])
+#define FDJ_OPS14 FDJ_OPS13, "f"(x[13]), "f"(t[13])
+#define FDJ_OPS15 FDJ_OPS14, "f"(x[14]), "f"(t[14])
+#define FDJ_OPS16 FDJ_OPS15, "f"(x[15]), "f"(t[15])
+#define FDJ_OPS17 FDJ_OPS16, "f"(x[16]), "f"(t[16])
+#define FDJ_OPS18 FDJ_OPS17, "f"(x[17]), "f"(t[17])
+#define FDJ_OPS19 FDJ_OPS18, "f"(x[18]), "f"(t[18])
+#define FDJ_OPS20 FDJ_OPS19, "f"(x[19]), "f"(t[19])
+#define FDJ_OPS21 FDJ_OPS20, "f"(x[20]), "f"(t[20])
+#define FDJ_OPS22 FDJ_OPS21, "f"(x[21]), "f"(t[21])
+#define FDJ_OPS23 FDJ_OPS22, "f"(x[22]), "f"(t[22])
+#define FDJ_OPS24 FDJ_OPS23, "f"(x[23]), "f"(t[23])
+#define FDJ_OPS25 FDJ_OPS24, "f"(x[24]), "f"(t[24])
+#define FDJ_OPS26 FDJ_OPS25, "f"(x[25]), "f"(t[25])
+#define FDJ_OPS27 FDJ_OPS26, "f"(x[26]), "f"(t[26])
+#define FDJ_OPS28 FDJ_OPS27, "f"(x[27]), "f"(t[27])
+#define FDJ_OPS29 FDJ_OPS28, "f"(x[28]), "f"(t[28])
+#define FDJ_OPS30 FDJ_OPS29, "f"(x[29]), "f"(t[29])
+#define FDJ_OPS31 FDJ_OPS30, "f"(x[30]), "f"(t[30])
+#define FDJ_OPS32 FDJ_OPS31, "f"(x[31]), "f"(t[31])
+#define FDJ_PAIR(C)                                                          \
+  template <>                                                                \
+  struct Pair<C> {                                                           \
+    __device__ __forceinline__ static void add(uint32_t& acc, uint32_t w,    \
+                                               const float* x,               \
+                                               const float* t) {             \
+      asm("{\n\t.reg .pred p;\n\t" FDJ_CHAIN##C                           \
+          "@p add.u32 %0, %0, %1;\n\t}"                                    \
+          : "+r"(acc)                                                        \
+          : "r"(w), FDJ_OPS##C);                                             \
+    }                                                                        \
+  };
+FDJ_PAIR(1) FDJ_PAIR(2) FDJ_PAIR(3) FDJ_PAIR(4) FDJ_PAIR(5) FDJ_PAIR(6)
+FDJ_PAIR(7) FDJ_PAIR(8) FDJ_PAIR(9) FDJ_PAIR(10) FDJ_PAIR(11) FDJ_PAIR(12)
+FDJ_PAIR(13) FDJ_PAIR(14) FDJ_PAIR(15) FDJ_PAIR(16) FDJ_PAIR(20)
+FDJ_PAIR(24) FDJ_PAIR(28) FDJ_PAIR(32)
+#undef FDJ_PAIR
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);   // all but the newest group
+}
+
+// CT clause slots (n_c <= CT real clauses).  Block (x, y): threshold rows
+// x * blockDim.x * R + tid + r * blockDim.x (r < R), sample rows
+// [y * k_per_block, (y + 1) * k_per_block).
 template <int CT>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const float* __restrict__ cd, const float* __restrict__ labels,
              const float* __restrict__ valid, const float* __restrict__ thetas,
-             int k, int g_rows, int n_c, int32_t* __restrict__ out) {
-  const int nc = CT > 0 ? CT : n_c;
-  extern __shared__ float smem[];
-  float* cd_s = smem;                                          // kStaged * nc
-  int* code_s = reinterpret_cast<int*>(smem + kStaged * nc);   // kStaged
-  float* th_s = reinterpret_cast<float*>(code_s + kStaged);    // nc * kThreads
+             int k, int g_rows, int n_c, int k_per_block,
+             int32_t* __restrict__ out) {
+  constexpr int R = rows_per_thread(CT), CP = padded(CT), S = stage_rows(CT);
+  constexpr int kStage = S * (CP + 2);   // floats: distances, valid, labels
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
 
-  const int tid = threadIdx.x;
-  const int g = blockIdx.x * kThreads + tid;
-  const bool live = g < g_rows;
-  float th[CT > 0 ? CT : 1];
-  if (CT > 0) {
+  float th[R][CT];
+  const long long g0 = static_cast<long long>(blockIdx.x) * nt * R + tid;
 #pragma unroll
-    for (int c = 0; c < (CT > 0 ? CT : 1); ++c)
-      th[c] = live ? thetas[(long long)g * nc + c] : -INFINITY;
-  } else {
-    for (int c = 0; c < nc; ++c)
-      th_s[c * kThreads + tid] = live ? thetas[(long long)g * nc + c] : -INFINITY;
+  for (int r = 0; r < R; ++r) {
+    const long long g = g0 + static_cast<long long>(r) * nt;
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+      th[r][c] = c >= n_c ? INFINITY
+                 : g < g_rows ? thetas[g * n_c + c] : -INFINITY;
+  }
+  // the extra clauses' distances, never written by a stage: 0 passes +inf
+  for (int e = tid; e < 2 * S * (CP - n_c); e += nt) {
+    const int row = e / (CP - n_c), c = n_c + e % (CP - n_c);
+    smem[(row / S) * kStage + (row % S) * CP + c] = 0.0f;
   }
 
-  int pos = 0, sel = 0;
-  const long long k0 = (long long)blockIdx.y * kRowsPerBlock;
-  const long long k1 = min((long long)k, k0 + kRowsPerBlock);
-  for (long long s0 = k0; s0 < k1; s0 += kStaged) {
-    const int n = static_cast<int>(min((long long)kStaged, k1 - s0));
-    __syncthreads();                   // the previous step's readers are done
-    for (int e = tid; e < n * nc; e += kThreads) cd_s[e] = cd[s0 * nc + e];
-    for (int e = tid; e < n; e += kThreads) {
-      const bool v = valid[s0 + e] != 0.0f;
-      const bool l = labels[s0 + e] != 0.0f;
-      code_s[e] = v ? (1 | (l ? 2 : 0)) : 0;
+  const long long k0 = static_cast<long long>(blockIdx.y) * k_per_block;
+  const long long k1 = min(static_cast<long long>(k), k0 + k_per_block);
+  const int n_stages = k1 > k0 ? static_cast<int>((k1 - k0 + S - 1) / S) : 0;
+  const auto stage = [&](int t) {
+    float* buf = smem + (t & 1) * kStage;
+    const long long s0 = k0 + static_cast<long long>(t) * S;
+    const int n = static_cast<int>(min(static_cast<long long>(S), k1 - s0));
+    for (int i = tid; i < n; i += nt) {
+      const float* row = cd + (s0 + i) * n_c;
+      for (int c = 0; c < n_c; ++c) cp_async4(buf + i * CP + c, row + c);
+      cp_async4(buf + S * CP + i, valid + s0 + i);
+      cp_async4(buf + S * (CP + 1) + i, labels + s0 + i);
+    }
+  };
+
+  int pos[R], sel[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) pos[r] = sel[r] = 0;
+  if (n_stages > 0) stage(0);
+  cp_async_commit();
+  for (int t = 0; t < n_stages; ++t) {
+    if (t + 1 < n_stages) stage(t + 1);
+    cp_async_commit();                   // possibly empty: one group a step
+    cp_async_wait_prior();               // this thread's copies of stage t
+    __syncthreads();                     // everyone's
+    float* buf = smem + (t & 1) * kStage;
+    const int n = static_cast<int>(min(static_cast<long long>(S),
+                                       k1 - k0 - static_cast<long long>(t) * S));
+    uint32_t* code = reinterpret_cast<uint32_t*>(buf + S * CP);
+    const float* lab = buf + S * (CP + 1);
+    for (int i = tid; i < n; i += nt) {
+      const float v = __uint_as_float(code[i]);
+      code[i] = v != 0.0f ? (lab[i] != 0.0f ? 0x10001u : 1u) : 0u;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < n; ++i) {
-      bool ok = true;
-      if (CT > 0) {
+
+    uint32_t acc[R];
 #pragma unroll
-        for (int c = 0; c < (CT > 0 ? CT : 1); ++c)
-          ok &= (cd_s[i * nc + c] <= th[c]);
-      } else {
-        for (int c = 0; c < nc; ++c)
-          ok &= (cd_s[i * nc + c] <= th_s[c * kThreads + tid]);
+    for (int r = 0; r < R; ++r) acc[r] = 0;
+#pragma unroll 2
+    for (int i = 0; i < n; ++i) {
+      float x[CP];
+#pragma unroll
+      for (int q = 0; q < CP / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(buf + i * CP)[q];
+        x[4 * q] = v.x;
+        x[4 * q + 1] = v.y;
+        x[4 * q + 2] = v.z;
+        x[4 * q + 3] = v.w;
       }
-      const int m = ok ? code_s[i] : 0;
-      sel += m & 1;
-      pos += m >> 1;
+      const uint32_t w = code[i];
+#pragma unroll
+      for (int r = 0; r < R; ++r) Pair<CT>::add(acc[r], w, x, th[r]);
     }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sel[r] += static_cast<int>(acc[r] & 0xffffu);
+      pos[r] += static_cast<int>(acc[r] >> 16);
+    }
+    __syncthreads();                     // stage t + 2 reuses this buffer
   }
-  if (live) {
-    atomicAdd(&out[2 * g], pos);
-    atomicAdd(&out[2 * g + 1], sel);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long g = g0 + static_cast<long long>(r) * nt;
+    if (g < g_rows && sel[r] != 0) {
+      atomicAdd(&out[2 * g], pos[r]);
+      atomicAdd(&out[2 * g + 1], sel[r]);
+    }
   }
 }
 
@@ -150,19 +341,66 @@ template <int CT>
 cudaError_t launch(const float* cd, const float* labels, const float* valid,
                    const float* thetas, int k, int g_rows, int n_c,
                    int32_t* out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kStaged) * n_c +
-                                       kStaged +
-                                       (CT > 0 ? 0 : static_cast<size_t>(n_c) * kThreads));
+  constexpr int R = rows_per_thread(CT), S = stage_rows(CT);
+  const size_t smem = 2 * sizeof(float) * S * (padded(CT) + 2);
+  const auto kernel = sweep_kernel<CT>;
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((g_rows + kThreads - 1) / kThreads,
-                  (k + kRowsPerBlock - 1) / kRowsPerBlock);
-  sweep_kernel<CT><<<grid, kThreads, smem, stream>>>(cd, labels, valid, thetas,
-                                                     k, g_rows, n_c, out);
+  // threads: enough for the rows, a whole number of warps, at most kThreads
+  const long long per_thread_rows = (g_rows + R - 1LL) / R;
+  const int threads = static_cast<int>(
+      std::min<long long>(kThreads, (per_thread_rows + 31) / 32 * 32));
+  const long long strips = (g_rows + static_cast<long long>(threads) * R - 1) /
+                           (static_cast<long long>(threads) * R);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  // k ranges: as many blocks as the card holds at once, and no more (a
+  // block over would start a second wave as long as the first), each at
+  // least a stage
+  long long ranges = static_cast<long long>(std::max(per_sm, 1)) * sms /
+                     strips;
+  ranges = std::min(ranges, (k + S - 1LL) / S);
+  ranges = std::max(1LL, std::min(ranges, 65535LL));
+  const long long k_per_block = (k + ranges - 1) / ranges;
+  ranges = (k + k_per_block - 1) / k_per_block;
+  if (strips > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(strips),
+                  static_cast<unsigned>(ranges));
+  kernel<<<grid, threads, smem, stream>>>(cd, labels, valid, thetas, k,
+                                          g_rows, n_c,
+                                          static_cast<int>(k_per_block), out);
   return cudaGetLastError();
 }
+
+template <int... Cs>
+cudaError_t dispatch(std::integer_sequence<int, Cs...>, const float* cd,
+                     const float* labels, const float* valid,
+                     const float* thetas, int k, int g_rows, int n_c,
+                     int32_t* out, cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+  const int slots = clause_slots(n_c);
+  (void)((slots == Cs
+              ? (err = launch<Cs>(cd, labels, valid, thetas, k, g_rows, n_c,
+                                  out, stream),
+                 true)
+              : false) ||
+         ...);
+  return err;
+}
+
+// The instantiations: C 1..16, then 20, 24, 28, 32.
+using ClauseSlots = std::integer_sequence<int, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10,
+                                          11, 12, 13, 14, 15, 16, 20, 24, 28,
+                                          32>;
+static_assert(clause_slots(kMaxClauses) == kMaxClauses,
+              "every C up to kMaxClauses has an instantiation");
 
 }  // namespace
 
@@ -575,18 +813,8 @@ int threshold_sweep_launch(const float* cd, const float* labels,
   if (g_rows == 0) return 0;
   cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int32_t) * 2 * g_rows, s);
   if (err != cudaSuccess || k == 0) return static_cast<int>(err);
-  switch (n_c) {
-    case 1: err = launch<1>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    case 2: err = launch<2>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    case 3: err = launch<3>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    case 4: err = launch<4>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    case 5: err = launch<5>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    case 6: err = launch<6>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    case 7: err = launch<7>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    case 8: err = launch<8>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-    default: err = launch<0>(cd, labels, valid, thetas, k, g_rows, n_c, out, s); break;
-  }
-  static_assert(kMaxUnrolled == 8, "the switch above unrolls C = 1..8");
+  err = dispatch(ClauseSlots{}, cd, labels, valid, thetas, k, g_rows, n_c,
+                 out, s);
   return static_cast<int>(err);
 }
 

@@ -7,7 +7,9 @@ equal to thresholds, duplicate threshold rows and invalid sample rows
 (+inf distances, so only ``valid`` keeps them out).  ``grid_fixture`` is
 a labelled sample and the ``candidate_grid`` that ``plan_join``'s device
 sweep builds from its positives, optionally followed by -inf rows up to the
-next multiple of 256 above its size, as the direct route pads a grid.  ``bins_thetas`` gives
+next multiple of 256 above its size, as the direct route pads a grid.
+``direct_fixture`` is ``edge_fixture`` at any C, padded for the direct
+route and followed by a block of invalid rows.  ``bins_thetas`` gives
 threshold rows whose clause c holds exactly ``u[c]`` distinct values, to
 put the ranked route's bin count where a test wants it.
 """
@@ -46,6 +48,23 @@ def edge_fixture(seed: int, k: int = 1037, c: int = 3, g: int = 48):
     thetas[5] = [np.inf] + [0.5] * (c - 1)
     thetas[g - 4:] = thetas[6:10]          # duplicate rows
     return cd, labels, valid, thetas.astype(_F32)
+
+
+def direct_fixture(c: int, seed: int = 0):
+    """``edge_fixture(seed, 1037, c, 300)`` padded as ``ops.sweep`` pads the
+    direct route (sample rows to 1536 with valid 0, -inf threshold rows to
+    512), then 2048 more invalid rows at -inf, which every threshold but a
+    NaN would pass: whole stages of pad rows that only ``valid`` keeps
+    out."""
+    k, g, pad_block = 1037, 300, 2048
+    cd, labels, valid, th = edge_fixture(seed, k=k, c=c, g=g)
+    kp = 1536 + pad_block
+    cd = np.concatenate([cd, np.zeros((kp - k - pad_block, c), _F32),
+                         np.full((pad_block, c), -np.inf, _F32)])
+    labels = np.pad(labels, (0, kp - k), constant_values=1.0)
+    valid = np.pad(valid, (0, kp - k))
+    th = np.concatenate([th, np.full((512 - g, c), -np.inf, _F32)])
+    return cd, labels, valid, th
 
 
 def grid_fixture(seed: int, k: int, c: int, pad: bool):

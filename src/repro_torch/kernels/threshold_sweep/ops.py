@@ -101,8 +101,10 @@ def candidate_grid(cd_pos: np.ndarray, max_per_dim: int = 24,
         return np.zeros((1, 0), np.float32)
     uniq = [np.unique(cd_pos[:, j]) for j in range(c)]
     counts = [min(len(u), max_per_dim) for u in uniq]
-    # shrink the largest dim until the cartesian product fits the cap
-    while int(np.prod(counts)) > max_grid and max(counts) > 2:
+    # shrink the largest dim until the cartesian product fits the cap (a
+    # Python int product: numpy's int64 one wraps from C = 14 at 24 values
+    # a clause and can end the loop early with an astronomic grid)
+    while math.prod(counts) > max_grid and max(counts) > 2:
         counts[int(np.argmax(counts))] -= 1
     axes = []
     for j, u in enumerate(uniq):

@@ -76,7 +76,7 @@ from repro_torch.core.costs import CostLedger
 from repro_torch.core.featurize import distance_stack, vectorize
 from repro_torch.core.join import (FDJConfig, JoinPlan, JoinResult, QueryOptions,
                              _get_engine, apply_conjunct_order, execute_join,
-                             make_label_fn, plan_join)
+                             make_label_fn, needs_planes, plan_join)
 from repro_torch.core.scaffold import min_fpr_thresholds, ordered_conjuncts
 from repro_torch.core.refine import RefinementPump
 from repro_torch.obs.metrics import MetricsRegistry
@@ -207,6 +207,9 @@ class PlanLibrary:
     ``lease(key)`` serializes cold planning per key (the analogue of the
     store lock held through ``provide``): two tenants racing the same
     cold (corpus, plan key) plan once — the loser wakes to a library hit.
+    The tenant that plans also puts the plan's planes into the store
+    before it lets the lease go (``JoinService._query_impl``), so the
+    loser's ``provide`` finds them resident, as in a serial run.
     """
 
     _MAX = 32
@@ -396,6 +399,20 @@ class JoinService:
         extractor = self._extractor_factory(self.dataset)
         snap0 = self.store.snapshot()
 
+        # capture the plane set execute/delta consumed: the eval cache must
+        # remember the scalar normalizations its candidates were computed
+        # under (the delta path is only exact while those hold)
+        raw_provider = self._provider(extractor)
+        captured: dict = {}
+
+        def provider(specs, led):
+            # one provide() per query: a delta-path fallback re-enters via
+            # execute_join, which must reuse the already-provided planes
+            # rather than re-counting store hits
+            if "planes" not in captured:
+                captured["planes"] = raw_provider(specs, led)
+            return captured["planes"]
+
         key = self._plan_key(cfg)
         plan = self._plans.get(key)
         plan_hit = plan is not None and not refresh_plan
@@ -411,22 +428,28 @@ class JoinService:
                                  self._proposer_factory(self.dataset),
                                  extractor, cfg, ledger=qledger, label=label)
 
-            if lib is not None and not refresh_plan:
+            if lib is not None:
                 # cross-tenant dedup: a sibling service already planned
                 # this exact (corpus, plan key) — determinism makes the
                 # loaned copy byte-identical to planning it here.  The
                 # lease serializes racing colds, so the loser wakes to a
-                # hit instead of planning the same thing twice.
+                # hit instead of planning the same thing twice.  The
+                # planner provides its planes before it lets the lease
+                # go: its extractor already paid planning's first-touch
+                # records, and a loser that built the planes first, with a
+                # fresh extractor, would pay those records again.
                 with lib.lease(lib_key):
-                    plan = lib.get(lib_key)
+                    plan = None if refresh_plan else lib.get(lib_key)
                     plan_hit = plan is not None
                     if plan is None:
                         plan = build()
                         lib.put(lib_key, plan)
+                        if needs_planes(plan, cfg):
+                            with current_tracer().span(
+                                    "extract", specs=len(plan.used_specs)):
+                                provider(plan.used_specs, qledger)
             else:
                 plan = build()
-                if lib is not None:
-                    lib.put(lib_key, plan)
             self._plans.pop(key, None)
             self._plans[key] = plan
             self._evals.pop(key, None)      # plan rebuilt: stale evaluation
@@ -447,20 +470,6 @@ class JoinService:
                 self._plans.pop(old)
                 self._evals.pop(old, None)
                 self._reservoirs.pop(old, None)
-
-        # capture the plane set execute/delta consumed: the eval cache must
-        # remember the scalar normalizations its candidates were computed
-        # under (the delta path is only exact while those hold)
-        raw_provider = self._provider(extractor)
-        captured: dict = {}
-
-        def provider(specs, led):
-            # one provide() per query: a delta-path fallback re-enters via
-            # execute_join, which must reuse the already-provided planes
-            # rather than re-counting store hits
-            if "planes" not in captured:
-                captured["planes"] = raw_provider(specs, led)
-            return captured["planes"]
 
         # online guarantee recalibration (DESIGN.md §4a): before the plan is
         # replayed over a grown corpus, check its theta against a refreshed

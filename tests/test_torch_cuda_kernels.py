@@ -16,7 +16,11 @@ The threshold sweep's ranked route is held against both plain versions
 (``threshold_sweep_ranked_ref`` and the brute-force
 ``threshold_sweep_ref``) on the fixtures of
 ``tests/test_torch_sweep_ranked.py``, which hold those against the JAX
-package on the CPU.
+package on the CPU.  Its direct route is held to ``threshold_sweep_ref``
+bit for bit on the fixtures of ``tests/test_torch_sweep_direct.py`` (C in
+{1, 8, 9, 15, 32} with every f32 edge and whole stages of pad rows, a
+15-clause ``candidate_grid`` and its first row), at several G (the
+kernel's thread count follows G) and on a count above 2**24.
 """
 
 import numpy as np
@@ -26,8 +30,8 @@ import torch
 from repro_torch.data.cnf_fixtures import boundary_fixture
 from repro_torch.kernels.fused_cnf_join import ref as cref
 from repro_torch.kernels.fused_cnf_join.kernel import SCAL, VEC, cnf_join_block
-from repro_torch.data.sweep_fixtures import (bins_thetas, edge_fixture,
-                                             grid_fixture)
+from repro_torch.data.sweep_fixtures import (bins_thetas, direct_fixture,
+                                             edge_fixture, grid_fixture)
 from repro_torch.kernels.threshold_sweep import kernel as sk
 from repro_torch.kernels.threshold_sweep.kernel import threshold_sweep
 from repro_torch.kernels.threshold_sweep.ops import rank_axes
@@ -115,6 +119,70 @@ def test_threshold_sweep_kernel_matches_plain_version(cuda_device, c):
     got = threshold_sweep(*(a.to(cuda_device) for a in args))
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def _direct_on_card(device, cd, labels, valid, th):
+    """The direct route on the card against ``threshold_sweep_ref`` on the
+    CPU, bit for bit, and one launch counted."""
+    before = sk.launches["threshold_sweep_direct"]
+    got = threshold_sweep(*(torch.from_numpy(a).to(device)
+                            for a in (cd, labels, valid, th)))
+    torch.cuda.synchronize()
+    assert sk.launches["threshold_sweep_direct"] == before + 1
+    want = threshold_sweep_ref(*(torch.from_numpy(a)
+                                 for a in (cd, labels, th, valid)))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("c", [1, 8, 9, 15, 32])
+def test_threshold_sweep_direct_kernel_edges(cuda_device, c):
+    """NaN, +-0.0 and +-inf on both sides, k 1037 padded, and 2048 pad rows
+    at -inf that only valid keeps out."""
+    _direct_on_card(cuda_device, *direct_fixture(c, seed=c))
+
+
+@pytest.mark.parametrize("g", [256, 768, 4352])
+def test_threshold_sweep_direct_kernel_thread_counts(cuda_device, g):
+    """G 256 and 768 run blocks of fewer than 256 threads, 4352 two strips
+    at C 5."""
+    rng = np.random.default_rng(g)
+    k = 5120
+    cd = rng.uniform(0, 1, size=(k, 5)).astype(np.float32)
+    labels = (rng.random(k) < 0.3).astype(np.float32)
+    th = rng.uniform(0.2, 1, size=(g, 5)).astype(np.float32)
+    got = _direct_on_card(cuda_device, cd, labels, np.ones(k, np.float32), th)
+    assert got[:, 1].max() > 0
+
+
+@pytest.mark.parametrize("g", [1, 1 << 15])
+def test_threshold_sweep_direct_kernel_fifteen_clause_grid(cuda_device, g):
+    """A 15-clause ``candidate_grid`` (2**15 rows) and its first row at k
+    333, padded as ``ops.sweep`` pads the direct route."""
+    cd, labels, valid, th = grid_fixture(215, 333, 15, False)
+    th = th[:g]
+    gp = -(-g // 256) * 256
+    got = _direct_on_card(
+        cuda_device, np.pad(cd, ((0, 512 - 333), (0, 0))),
+        np.pad(labels, (0, 512 - 333)), np.pad(valid, (0, 512 - 333)),
+        np.concatenate([th, np.full((gp - g, 15), -np.inf, np.float32)]))
+    assert (got[g:] == 0).all()
+
+
+def test_threshold_sweep_direct_kernel_counts_above_f32(cuda_device):
+    """k = 2**24 + 512 rows that all pass row 0: the count is exact int32
+    where an f32 count would round (2**24 + 1 is not an f32 value)."""
+    k = (1 << 24) + 512
+    th = torch.full((256, 1), -np.inf, device=cuda_device)
+    th[0, 0], th[1, 0] = 0.5, -1.0
+    before = sk.launches["threshold_sweep_direct"]
+    got = threshold_sweep(torch.zeros((k, 1), device=cuda_device),
+                          torch.ones(k, device=cuda_device),
+                          torch.ones(k, device=cuda_device), th)
+    torch.cuda.synchronize()
+    assert sk.launches["threshold_sweep_direct"] == before + 1
+    assert got[:2].tolist() == [[k, k], [0, 0]]
+    assert int(got[2:].abs().sum()) == 0
 
 
 def test_wrappers_count_launches(cuda_device):
